@@ -1,0 +1,684 @@
+"""The Markovian VO state machine: bootstrap + per-frame processing (port of
+``lcvo_tpu/pipeline.py``, the default path).
+
+    state_i, result_i = process_frame(state_{i-1}, I_i, gen)
+
+One frame runs pyramid build → joint KLT over tracks and candidates (the CUDA
+block-extraction kernel on the card) → PnP-RANSAC localization → inlier filtering →
+anchor re-triangulation → candidate validation, triangulation and promotion →
+masked re-detection, all as fixed-shape tensor code with no host round trip. The host
+loop (:class:`VisualOdometry`) reads results back once per chunk and performs
+re-bootstrap recovery when the ``health`` counter says tracking collapsed.
+
+Ported: the ``shi-mask``/``harris-mask`` candidate modes, the KLT bootstrap with the
+eight-point essential solver, BA off. Other settings raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from lcvo_tpu_torch.config import VOConfig
+from lcvo_tpu_torch.core import geometry as geo
+from lcvo_tpu_torch.core import state as st
+from lcvo_tpu_torch.core.state import resolve_device
+from lcvo_tpu_torch.ops import epipolar, harris, pnp
+from lcvo_tpu_torch.ops.klt import pyramidal_klt
+from lcvo_tpu_torch.ops.pyramid import build_pyramid
+
+
+class FrameResult(NamedTuple):
+    R: torch.Tensor          # (3,3) world→camera
+    t: torch.Tensor          # (3,)
+    pose_ok: torch.Tensor    # () bool — PnP had enough inliers
+    n_tracked: torch.Tensor  # () int — tracks surviving KLT
+    n_inliers: torch.Tensor  # () int — PnP inliers
+    n_candidates: torch.Tensor
+    n_promoted: torch.Tensor
+    reproj_rms: torch.Tensor  # () float — RMS reprojection error of inliers (px)
+
+
+def check_supported(cfg: VOConfig) -> None:
+    """Raise for settings this port does not cover yet (ROADMAP §A)."""
+    if cfg.find_new_candidates_method in ("sift-mask", "sift-sift"):
+        raise NotImplementedError(
+            f"find_new_candidates_method={cfg.find_new_candidates_method!r} needs the SIFT "
+            "frontend, not ported yet (ROADMAP §A: sift-sift / sift-mask)")
+    if cfg.find_new_candidates_method not in ("shi-mask", "harris-mask"):
+        raise ValueError(f"unknown find_new_candidates_method: {cfg.find_new_candidates_method!r}")
+    if cfg.bootstrap.init_method == "sift":
+        raise NotImplementedError(
+            "bootstrap.init_method='sift' needs the SIFT frontend, not ported yet "
+            "(ROADMAP §A: sift-sift / sift-mask)")
+    if cfg.ransac.e_solver == "five_point":
+        raise NotImplementedError(
+            "ransac.e_solver='five_point' is not ported yet (ROADMAP §A: five_point)")
+    if cfg.ba.enabled:
+        raise NotImplementedError("ba.enabled: window BA is not ported yet (ROADMAP §A: window BA)")
+
+
+def _K_tensor(K, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(K, np.float32), device=device)
+
+
+def make_process_frame(cfg: VOConfig, K, device="cuda"):
+    """The per-frame step for a fixed config and intrinsics.
+
+    ``process_frame(state, image, gen, pnp_sampler=None)``: ``image`` (H, W) on the
+    state's device, any dtype (uint8 frames are cast on the device); ``gen`` the
+    generator the PnP minimal sets are drawn from. ``pnp_sampler(valid) -> (H, 3)``
+    replaces that draw (tests inject the JAX package's samples)."""
+    dev = resolve_device(device)
+    Kt = _K_tensor(K, dev)
+    fx = float(np.asarray(K)[0, 0])
+    kltc = cfg.klt
+    tri = cfg.triangulation
+    det = cfg.detector
+    n_tracks = cfg.state.max_tracks
+    alpha_rad = float(np.deg2rad(tri.alpha_deg))
+    pnp_thresh_n = cfg.ransac.pnp_thresh_px / fx
+    max_cand_age = tri.max_candidate_age
+    pyr_dtype = getattr(torch, cfg.runtime.dtype)
+    n_lvl = kltc.track_levels or kltc.levels
+    mc = kltc.track_margin_coarse or kltc.track_margin
+    margins = tuple(mc if l == n_lvl - 1 and n_lvl > 1 else kltc.track_margin
+                    for l in range(n_lvl))
+    method = cfg.find_new_candidates_method.split("-")[0]
+
+    def process_frame(state: st.VOState, image: torch.Tensor, gen=None, pnp_sampler=None):
+        with record_function("lcvo.pyramid"):
+            image = image.to(torch.float32)
+            pyr_new = build_pyramid(image.to(pyr_dtype), kltc.levels)
+        with record_function("lcvo.klt"):
+            tracks, cands, n_tracked = _track(state, pyr_new)
+        with record_function("lcvo.pnp"):
+            R, t, pose_ok, n_inl, tracks, rms = _localize(state, tracks, gen, pnp_sampler)
+        with record_function("lcvo.map"):
+            tracks, cands, n_promoted = _update_map(tracks, cands, R, t)
+        with record_function("lcvo.detect"):
+            cands = _detect(image, tracks, cands, R, t)
+
+        health = torch.where(pose_ok, torch.zeros_like(state.health), state.health + 1)
+        new_state = st.VOState(
+            tracks=tracks, cands=cands, R=R, t=t, frame_idx=state.frame_idx + 1,
+            prev_image=image, prev_pyramid=pyr_new, health=health,
+            # this frame's predecessor pose: the next frame's velocity model
+            prev_R=state.R, prev_t=state.t,
+        )
+        result = FrameResult(R=R, t=t, pose_ok=pose_ok, n_tracked=n_tracked,
+                             n_inliers=n_inl, n_candidates=cands.count(),
+                             n_promoted=n_promoted, reproj_rms=rms)
+        return new_state, result
+
+    def _track(state, pyr_new):
+        # ------ 1. joint KLT over landmark tracks P and candidate tracks C ------
+        # constant-velocity warm start: landmark tracks by reprojection under the
+        # extrapolated pose, candidates by the rotation-only homography K R_rel K^-1
+        R_rel = state.R @ state.prev_R.T
+        t_rel = state.t - R_rel @ state.prev_t
+        R_pred = R_rel @ state.R
+        t_pred = R_rel @ state.t + t_rel
+        uv_trk, z_trk = geo.project(Kt, R_pred, t_pred, state.tracks.X)
+        d_trk = torch.where((z_trk > 0.1)[:, None], uv_trk - state.tracks.P, 0.0)
+        C = state.cands.C
+        xh = torch.cat([geo.normalize_points(C, Kt), torch.ones_like(C[:, :1])], dim=-1)
+        xr = xh @ R_rel.T
+        zr = torch.where(torch.abs(xr[:, 2]) > 1e-6, xr[:, 2], 1e-6)
+        uv_cnd = torch.stack(
+            [Kt[0, 0] * xr[:, 0] / zr + Kt[0, 2], Kt[1, 1] * xr[:, 1] / zr + Kt[1, 2]], dim=-1)
+        d_cnd = torch.where((xr[:, 2] > 0.1)[:, None], uv_cnd - C, 0.0)
+        init_d = torch.cat([d_trk, d_cnd], dim=0)
+        init_d = torch.clamp(torch.nan_to_num(init_d), -kltc.max_displacement, kltc.max_displacement)
+
+        pts = torch.cat([state.tracks.P, C], dim=0)
+        new_pts, klt_ok, _ = pyramidal_klt(
+            state.prev_pyramid[:n_lvl], pyr_new[:n_lvl], pts,
+            window=kltc.window, iters=kltc.iters, max_residual=kltc.max_residual,
+            max_displacement=kltc.max_displacement, border=kltc.border, eps=kltc.eps,
+            iter_dtype=kltc.iter_dtype, margin=margins, init_d=init_d,
+            iters_coarse=kltc.iters_coarse,
+        )
+        tracks = state.tracks._replace(P=new_pts[:n_tracks],
+                                       valid=state.tracks.valid & klt_ok[:n_tracks])
+        cands = state.cands._replace(C=new_pts[n_tracks:],
+                                     valid=state.cands.valid & klt_ok[n_tracks:],
+                                     age=state.cands.age + 1)
+        return tracks, cands, tracks.count()
+
+    def _localize(state, tracks, gen, pnp_sampler):
+        # ------ 2. PnP-RANSAC localization ------
+        x_obs = geo.normalize_points(tracks.P, Kt)
+        R, t, inl, n_inl = pnp.pnp_ransac(
+            gen, tracks.X, x_obs, tracks.valid, thresh=pnp_thresh_n,
+            n_hyp=cfg.ransac.pnp_hypotheses, refine_iters=cfg.ransac.refine_iters,
+            idx=None if pnp_sampler is None else pnp_sampler(tracks.valid),
+        )
+        pose_ok = n_inl >= cfg.ransac.min_pnp_inliers
+        R = torch.where(pose_ok, R, state.R)
+        t = torch.where(pose_ok, t, state.t)
+        # filter to PnP inliers; on failure keep the tracks
+        tracks = st.prune_tracks(tracks, torch.where(pose_ok, inl, tracks.valid))
+        err_n = pnp.reproj_sq_error(R, t, tracks.X, x_obs)
+        err_n = torch.where(tracks.valid & torch.isfinite(err_n), err_n, 0.0)
+        rms = torch.sqrt(torch.sum(err_n) / torch.clamp(tracks.count(), min=1)) * fx
+        return R, t, pose_ok, n_inl, tracks, rms
+
+    def _update_map(tracks, cands, R, t):
+        # ------ 2.5 anchor re-triangulation of young landmarks ------
+        # (not gated on pose_ok, as in the JAX package: ROADMAP §C)
+        if tri.track_refine:
+            ang_now = geo.bearing_angle(tracks.R_f, tracks.t_f, R, t, tracks.F, tracks.P, Kt)
+            x_a = geo.normalize_points(tracks.F, Kt)
+            x_p = geo.normalize_points(tracks.P, Kt)
+            X_ref = geo.triangulate_linear(tracks.R_f, tracks.t_f, R, t, x_a, x_p)
+            z_ref = geo.se3_apply(R, t, X_ref)[:, 2]
+            z_anc = geo.se3_apply(tracks.R_f, tracks.t_f, X_ref)[:, 2]
+            uv_ref, _ = geo.project(Kt, R, t, X_ref)
+            uv_anc, _ = geo.project(Kt, tracks.R_f, tracks.t_f, X_ref)
+            re_ref = torch.sum((uv_ref - tracks.P) ** 2, dim=-1)
+            re_anc = torch.sum((uv_anc - tracks.F) ** 2, dim=-1)
+            ref_ok = (
+                tracks.valid
+                & (ang_now > tracks.ang * tri.refine_min_improve)
+                & (z_ref > tri.min_depth)
+                & (z_ref < tri.max_depth)
+                & (z_anc > tri.min_depth)
+                & (re_ref < tri.max_reproj_px ** 2)
+                & (re_anc < tri.max_reproj_px ** 2)
+            )
+            tracks = tracks._replace(X=torch.where(ref_ok[:, None], X_ref, tracks.X),
+                                     ang=torch.where(ref_ok, ang_now, tracks.ang))
+
+        # ------ 3. candidate validation + batched triangulation + promotion ------
+        ang = geo.bearing_angle(cands.R_f, cands.t_f, R, t, cands.F, cands.C, Kt)
+        x_f = geo.normalize_points(cands.F, Kt)
+        x_c = geo.normalize_points(cands.C, Kt)
+        X_tri = geo.triangulate_linear(cands.R_f, cands.t_f, R, t, x_f, x_c)
+        z_cur = geo.se3_apply(R, t, X_tri)[:, 2]
+        z_first = geo.se3_apply(cands.R_f, cands.t_f, X_tri)[:, 2]
+        uv_c, _ = geo.project(Kt, R, t, X_tri)
+        re_c = torch.sum((uv_c - cands.C) ** 2, dim=-1)
+        geom_ok = (
+            (z_cur > tri.min_depth)
+            & (z_cur < tri.max_depth)
+            & (z_first > tri.min_depth)
+            & (re_c < tri.max_reproj_px ** 2)
+        )
+        if tri.max_depth_baseline_ratio > 0:
+            # depth/baseline gate against low-parallax, near-biased triangulations
+            c_first = geo.camera_center(cands.R_f, cands.t_f)
+            c_cur = geo.camera_center(R, t)
+            baseline = torch.linalg.norm(c_first - c_cur[None, :], dim=-1)
+            geom_ok = geom_ok & (z_cur < tri.max_depth_baseline_ratio * baseline)
+        promote = cands.valid & (ang > alpha_rad) & geom_ok
+        tracks = st.insert_into_tracks(
+            tracks, cands.C, X_tri, promote,
+            F_new=cands.F, R_f_new=cands.R_f, t_f_new=cands.t_f, ang_new=ang,
+        )
+        n_promoted = torch.sum(promote)
+        cands = st.prune_candidates(cands, ~promote & (cands.age < max_cand_age))
+        return tracks, cands, n_promoted
+
+    def _detect(image, tracks, cands, R, t):
+        # ------ 4. re-detection of new candidates ------
+        pts_det, _, det_ok = harris.detect_corners(
+            image,
+            max_corners=min(det.max_corners, cfg.state.max_new_per_frame),
+            quality_level=det.quality_level, cells_y=det.grid_cells_y,
+            cells_x=det.grid_cells_x, cells_topk=det.cells_topk, method=method,
+            window=det.window, border=kltc.border, harris_k=det.harris_k,
+        )
+        det_ok = harris.suppress_near_existing(pts_det, det_ok, tracks.P, tracks.valid,
+                                               det.min_distance)
+        det_ok = harris.suppress_near_existing(pts_det, det_ok, cands.C, cands.valid,
+                                               det.min_distance)
+        return st.insert_into_candidates(cands, pts_det, R, t, det_ok)
+
+    return process_frame
+
+
+# ---------------------------------------------------------------------------
+# Two-view bootstrap
+# ---------------------------------------------------------------------------
+
+
+def make_bootstrap_fns(cfg: VOConfig, K, device="cuda"):
+    """The pieces of the sequential-KLT two-view bootstrap: ``detect0(image)``,
+    ``track_pair(pyr0, pyr1, pts, valid)`` and
+    ``two_view_init(gen, pts0, pts1, valid, e_idx=None)``."""
+    dev = resolve_device(device)
+    Kt = _K_tensor(K, dev)
+    fx = float(np.asarray(K)[0, 0])
+    kltc = cfg.klt
+    det = cfg.detector
+
+    def detect0(image):
+        pts, _, ok = harris.detect_corners(
+            image,
+            max_corners=min(det.max_corners, cfg.state.max_tracks),
+            quality_level=det.quality_level, cells_y=det.grid_cells_y,
+            cells_x=det.grid_cells_x, cells_topk=max(det.cells_topk, 8),
+            method=det.method if det.method in ("shi", "harris") else "shi",
+            window=det.window, border=kltc.border, harris_k=det.harris_k,
+        )
+        return pts, ok
+
+    def track_pair(pyr0, pyr1, pts, valid):
+        # bootstrap hops have no motion prior: full (zero-start) margin
+        new_pts, ok, _ = pyramidal_klt(
+            pyr0, pyr1, pts, window=kltc.window, iters=kltc.iters,
+            max_residual=kltc.max_residual, max_displacement=kltc.max_displacement,
+            border=kltc.border, eps=kltc.eps, iter_dtype=kltc.iter_dtype, margin=kltc.margin,
+        )
+        return new_pts, valid & ok
+
+    def two_view_init(gen, pts0, pts1, valid, e_idx=None):
+        """E-RANSAC + cheirality + triangulation between the bootstrap endpoints.
+        Returns (R, t (unit baseline), X (N,3) cam0-frame points, ok mask, n_inliers)."""
+        x0 = geo.normalize_points(pts0, Kt)
+        x1 = geo.normalize_points(pts1, Kt)
+        E, inl, n_inl = epipolar.essential_ransac(
+            gen, x0, x1, valid, thresh=cfg.ransac.e_thresh_px / fx,
+            n_hyp=cfg.ransac.e_hypotheses, solver=cfg.ransac.e_solver, idx=e_idx,
+        )
+        R, t, _ = epipolar.recover_pose(E, x0, x1, inl)
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        X = geo.triangulate_linear(eye, torch.zeros(3, device=dev), R, t, x0, x1)
+        z1 = geo.se3_apply(R, t, X)[:, 2]
+        uv1_hat, _ = geo.project(Kt, R, t, X)
+        re1 = torch.sum((uv1_hat - pts1) ** 2, dim=-1)
+        ok = (
+            inl
+            & (X[:, 2] > cfg.triangulation.min_depth * 0.25)
+            & (z1 > cfg.triangulation.min_depth * 0.25)
+            & (re1 < cfg.ransac.e_thresh_px ** 2 * 16.0)
+        )
+        return R, t, X, ok, n_inl
+
+    return detect0, track_pair, two_view_init
+
+
+# ---------------------------------------------------------------------------
+# Chunked step — the streaming path
+# ---------------------------------------------------------------------------
+
+
+def make_chunk_fn(cfg: VOConfig, K, device="cuda"):
+    """``chunk_fn(state, frames (chunk,H,W), gen) -> (state', (R (chunk,3,3),
+    t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``: ``process_frame`` over a
+    chunk of frames, a Python loop in place of ``lax.scan``. Nothing is read back."""
+    if cfg.ba.enabled:
+        raise NotImplementedError("ba.enabled: window BA is not ported yet (ROADMAP §A: window BA)")
+    fn = make_process_frame(cfg, K, device)
+
+    def chunk_fn(state, frames, gen):
+        outs = []
+        for j in range(frames.shape[0]):
+            state, res = fn(state, frames[j], gen)
+            outs.append(res)
+        return state, (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
+                       torch.stack([r.pose_ok for r in outs]),
+                       torch.stack([r.n_inliers for r in outs]))
+
+    return chunk_fn
+
+
+# ---------------------------------------------------------------------------
+# Host loop
+# ---------------------------------------------------------------------------
+
+
+class VisualOdometry:
+    """Host-side loop: owns the step, the bootstrap state machine and failure
+    recovery. ``device`` defaults to CUDA; the CPU runs only when asked for."""
+
+    def __init__(self, cfg: VOConfig, K: np.ndarray, device="cuda"):
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.K = np.asarray(K, np.float64)
+        self._process = make_process_frame(cfg, self.K, self.device)
+        self._detect0, self._track_pair, self._two_view = make_bootstrap_fns(
+            cfg, self.K, self.device)
+        self.state: st.VOState | None = None
+        # counterpart of jax.random.PRNGKey(cfg.seed): one explicit generator
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(cfg.seed)
+        self.trajectory: list[np.ndarray] = []  # camera centers (world)
+        self.poses: list[np.ndarray] = []       # (4,4) cam→world, one per trajectory entry
+        self.pose_ok_flags: list[bool] = []     # per-entry health (False: held/weak pose)
+        self.results: list = []
+        self.n_rebootstraps = 0
+
+    def _frame(self, f) -> torch.Tensor:
+        """A frame on the device in its own dtype (uint8 stays uint8; the step casts)."""
+        return torch.as_tensor(np.asarray(f)).to(self.device)
+
+    # -- bootstrap ---------------------------------------------------------
+    def bootstrap(self, frames: list, R0: np.ndarray | None = None,
+                  t0: np.ndarray | None = None, scale: float | None = None) -> int:
+        """Initialize from a short frame burst (length = bootstrap gap + 1).
+
+        Optional (R0, t0) anchors the first bootstrap camera at a known world pose
+        (re-bootstrap keeps the map in one frame); optional ``scale`` sets the metric
+        length of the two-view baseline. Returns the essential-matrix inlier count."""
+        cfg = self.cfg
+        dev = self.device
+        imgs = [self._frame(f).to(torch.float32) for f in frames]
+        pyr_dtype = getattr(torch, cfg.runtime.dtype)
+        pyrs = [build_pyramid(im.to(pyr_dtype), cfg.klt.levels) for im in imgs]
+        pts0, ok = self._detect0(imgs[0])
+        pts = pts0
+        for i in range(len(imgs) - 1):
+            pts, ok = self._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
+        R, t, X, good, n_inl = self._two_view(self._gen, pts0, pts, ok)
+        if scale is not None and np.isfinite(scale) and scale > 1e-6:
+            # uniform scaling of the two-view geometry preserves all observations
+            t = t * float(scale)
+            X = X * float(scale)
+
+        # anchor into the world frame: cam0 pose = (R0, t0) (identity on first bootstrap)
+        if R0 is None:
+            R0, t0 = np.eye(3), np.zeros(3)
+        R0t = torch.as_tensor(np.asarray(R0, np.float32), device=dev)
+        t0t = torch.as_tensor(np.asarray(t0, np.float32), device=dev)
+        R_last, t_last = geo.se3_compose(R, t, R0t, t0t)
+        Ri, ti = geo.se3_inverse(R0t, t0t)
+        X_w = geo.se3_apply(Ri, ti, X)
+
+        state = st.make_vo_state(cfg, tuple(imgs[0].shape), dev)
+        Kt = _K_tensor(self.K, dev)
+        boot_ang = geo.bearing_angle(R0t, t0t, R_last, t_last, pts0, pts, Kt)
+        tracks = st.insert_into_tracks(state.tracks, pts, X_w, good,
+                                       F_new=pts0, R_f_new=R0t, t_f_new=t0t, ang_new=boot_ang)
+        # seed the constant-velocity model with the bootstrap window's mean per-frame
+        # translation
+        c_last = geo.camera_center(R_last, t_last).cpu().numpy()
+        c0 = geo.camera_center(R0t, t0t).cpu().numpy()
+        c_prev = c_last - (c_last - c0) / max(len(imgs) - 1, 1)
+        prev_t = -(R_last @ torch.as_tensor(c_prev.astype(np.float32), device=dev))
+        self.state = state._replace(
+            tracks=tracks, R=R_last, t=t_last, prev_R=R_last.clone(), prev_t=prev_t,
+            prev_image=imgs[-1], prev_pyramid=pyrs[-1],
+        )
+        n = int(n_inl)
+        if n < cfg.bootstrap.min_matches:
+            warnings.warn(
+                f"weak bootstrap: {n} essential-matrix inliers < "
+                f"bootstrap.min_matches={cfg.bootstrap.min_matches}",
+                stacklevel=2,
+            )
+        return n
+
+    # -- per-frame ---------------------------------------------------------
+    def step(self, image) -> FrameResult:
+        assert self.state is not None, "call bootstrap() first"
+        self.state, res = self._process(self.state, self._frame(image), self._gen)
+        return res
+
+    def record(self, res: FrameResult):
+        self._append_pose(res.R.cpu().numpy(), res.t.cpu().numpy(), ok=bool(res.pose_ok))
+        self.results.append(res)
+
+    def _emit(self, res: FrameResult, on_frame):
+        """Record a pose and its metrics row; every trajectory entry gets one."""
+        self.record(res)
+        if on_frame is not None:
+            on_frame(len(self.trajectory) - 1, res)
+
+    def _append_pose(self, R: np.ndarray, t: np.ndarray, ok: bool = True):
+        """Append one world→camera pose as a camera center (``trajectory``) and a 4x4
+        cam→world matrix (``poses``); ``ok=False`` marks held/weak poses."""
+        T = np.eye(4)
+        T[:3, :3] = R.T
+        T[:3, 3] = -R.T @ t
+        self.trajectory.append(T[:3, 3].copy())
+        self.poses.append(T)
+        self.pose_ok_flags.append(bool(ok))
+
+    def _recent_step_scale(self, k: int = 16) -> float | None:
+        """Median per-frame translation over the last ``k`` healthy steps: the
+        pre-failure velocity that carries metric scale through a re-bootstrap."""
+        if len(self.trajectory) < 3:
+            return None
+        pts = np.asarray(self.trajectory[-(k + 1):])
+        flags = np.asarray(self.pose_ok_flags[-(k + 1):], bool)
+        d = np.linalg.norm(np.diff(pts, axis=0), axis=1)
+        good = flags[:-1] & flags[1:] & (d > 1e-9)
+        if int(np.sum(good)) < 2:
+            return None
+        return float(np.median(d[good]))
+
+    def _chunk_emit(self, on_chunk, Rs, ts, oks, ninl=None):
+        """Append host-synthesized poses in chunked mode with their metrics rows;
+        ``ninl=None`` emits the -1 "not measured" sentinel."""
+        if on_chunk is not None:
+            on_chunk(len(self.trajectory), np.asarray(Rs), np.asarray(ts),
+                     np.asarray(oks, bool),
+                     np.full(len(oks), -1, np.int32) if ninl is None else np.asarray(ninl))
+        for R, t, ok in zip(Rs, ts, oks):
+            self._append_pose(np.asarray(R), np.asarray(t), ok=bool(ok))
+
+    def _pose_result(self, R, t, pose_ok: bool) -> FrameResult:
+        """A host-synthesized FrameResult (bootstrap end pose, or a held pose)."""
+        dev = self.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return FrameResult(
+            R=torch.as_tensor(np.asarray(R, np.float32), device=dev),
+            t=torch.as_tensor(np.asarray(t, np.float32), device=dev),
+            pose_ok=torch.tensor(pose_ok, device=dev),
+            n_tracked=self.state.tracks.count(), n_inliers=zero,
+            n_candidates=zero, n_promoted=zero,
+            reproj_rms=torch.zeros((), device=dev),
+        )
+
+    def _host_pose(self):
+        return self.state.R.cpu().numpy(), self.state.t.cpu().numpy()
+
+    # -- chunked throughput mode -------------------------------------------
+    def run_chunked(self, frames, chunk: int = 16, n_frames: int | None = None,
+                    on_chunk=None, checkpoint_every: int = 0):
+        """Replay a whole sequence in chunks (bootstrap first).
+
+        ``frames``: a (T, H, W) array or any iterable of (H, W) frames. One pose per
+        frame from frame ``gap`` onward, the bootstrap-end pose first, so ground truth
+        aligns as ``gt[gap : gap + len(traj)]``. Tail frames that don't fill a chunk
+        run through the per-frame path. ``on_chunk(start, Rs, ts, ok, ninl)`` receives
+        each chunk's per-frame outputs."""
+        if checkpoint_every:
+            raise NotImplementedError("checkpoint/resume is not ported yet "
+                                      "(ROADMAP §A: checkpoint/resume)")
+        gap = self.cfg.bootstrap.frame_gap
+        if n_frames is None and hasattr(frames, "__len__"):
+            n_frames = len(frames)
+        it = iter(frames)
+        boot = [f for _, f in zip(range(gap + 1), it)]
+        if len(boot) < gap + 1:
+            raise ValueError(
+                f"stream ended after {len(boot)} frame(s); the two-view bootstrap "
+                f"needs at least bootstrap.frame_gap + 1 = {gap + 1}"
+            )
+        n_boot_inl = self.bootstrap(boot)
+        R, t = self._host_pose()
+        self._chunk_emit(on_chunk, [R], [t], [True], ninl=[n_boot_inl])
+        return self.run_chunked_continue(it, produced=gap + 1, chunk=chunk,
+                                         n_frames=n_frames, on_chunk=on_chunk)
+
+    def run_chunked_continue(self, frame_iter, produced: int, chunk: int = 16,
+                             n_frames: int | None = None, on_chunk=None):
+        """Chunked streaming loop from an initialized state. If a chunk ends with
+        tracking collapsed (``health >= 2``), the loop re-bootstraps over the next
+        ``rebootstrap_skip + 1`` frames, anchored at the held pose and at the
+        pre-failure metric scale, recording the held pose for those frames."""
+        skip = max(self.cfg.bootstrap.rebootstrap_skip, 1)
+        it = iter(frame_iter)
+        chunk_fn = make_chunk_fn(self.cfg, self.K, self.device)
+        lookahead: list = []   # frames pulled from the stream but not yet processed
+        pulled = produced
+
+        def pull(k):
+            nonlocal pulled
+            out = []
+            while len(out) < k and (n_frames is None or pulled < n_frames):
+                try:
+                    out.append(next(it))
+                except StopIteration:
+                    break
+                pulled += 1
+            return out
+
+        def take(k):
+            out = []
+            while len(out) < k and lookahead:
+                out.append(lookahead.pop(0))
+            if len(out) < k:
+                out.extend(pull(k - len(out)))
+            return out
+
+        buf = take(chunk)
+        while len(buf) == chunk:
+            batch = torch.from_numpy(np.stack([np.asarray(f) for f in buf])).to(self.device)
+            self.state, (Rs, ts, ok, ninl) = chunk_fn(self.state, batch, self._gen)
+            # the chunk is queued on the device: pull the next frames meanwhile
+            if len(lookahead) < chunk:
+                lookahead.extend(pull(chunk - len(lookahead)))
+            # one read-back for everything the host needs from this chunk
+            packed = torch.cat([Rs.reshape(chunk, 9), ts, ok[:, None].float(),
+                                ninl[:, None].float(),
+                                self.state.health.float().expand(chunk)[:, None]], dim=1)
+            packed = packed.cpu().numpy()
+            Rs_h = packed[:, :9].reshape(chunk, 3, 3)
+            ts_h, ok_h = packed[:, 9:12], packed[:, 12] > 0.5
+            ninl_h, health = packed[:, 13].astype(np.int64), int(packed[0, 14])
+            if on_chunk is not None:
+                on_chunk(len(self.trajectory), Rs_h, ts_h, ok_h, ninl_h)
+            for j in range(chunk):
+                self._append_pose(Rs_h[j], ts_h[j], ok=bool(ok_h[j]))
+            produced += chunk
+            if health >= 2:
+                # tracking collapsed inside the chunk: re-bootstrap anchored at the
+                # held last pose, at the pre-failure metric scale
+                self.n_rebootstraps += 1
+                R0, t0 = self._host_pose()
+                speed = self._recent_step_scale()
+                burst = take(skip + 1)
+                if len(burst) == skip + 1:
+                    scale = speed * (len(burst) - 1) if speed else None
+                    n_rb_inl = self.bootstrap(burst, R0=R0, t0=t0, scale=scale)
+                    R1, t1 = self._host_pose()
+                    self._chunk_emit(on_chunk, [R0] * skip + [R1], [t0] * skip + [t1],
+                                     [False] * skip + [True], ninl=[-1] * skip + [n_rb_inl])
+                    produced += skip + 1
+                else:  # the sequence ended inside the burst: hold the anchor
+                    if burst:
+                        self._chunk_emit(on_chunk, [R0] * len(burst), [t0] * len(burst),
+                                         [False] * len(burst))
+                    produced += len(burst)
+                    buf = []
+                    break
+            buf = take(chunk)
+        for img in buf:  # tail frames that don't fill a chunk: per-frame path
+            res = self.step(img)
+            self._chunk_emit(on_chunk, [res.R.cpu().numpy()], [res.t.cpu().numpy()],
+                             [bool(res.pose_ok)], [int(res.n_inliers)])
+            produced += 1
+        return self.trajectory
+
+    # -- full-sequence convenience ------------------------------------------
+    def run(self, frame_iter, n_frames: int, bootstrap_gap: int | None = None, on_frame=None):
+        """Bootstrap + continuous operation over an iterable of frames, one pose per
+        frame from frame ``gap`` onward (index-exact across failure recovery). While
+        the two-view init is weak (fewer than ``bootstrap.min_matches`` inliers) the
+        window grows one frame at a time, bounded."""
+        cfg = self.cfg
+        gap = bootstrap_gap or cfg.bootstrap.frame_gap
+        min_m = cfg.bootstrap.min_matches
+        max_extend = 4
+        it = iter(frame_iter)
+        frames = [f for _, f in zip(range(gap + 1), it)]
+        if len(frames) < gap + 1:
+            raise ValueError(
+                f"stream ended after {len(frames)} frame(s); the two-view bootstrap "
+                f"needs at least bootstrap.frame_gap + 1 = {gap + 1}"
+            )
+        n_inl = self.bootstrap(frames)
+        produced = gap + 1
+        extends = 0
+        while n_inl < min_m and extends < max_extend and produced < n_frames:
+            try:
+                img = next(it)
+            except StopIteration:
+                break
+            self._emit(self._pose_result(*self._host_pose(), False), on_frame)
+            frames.append(img)
+            produced += 1
+            extends += 1
+            n_inl = self.bootstrap(frames)
+        self._emit(self._pose_result(*self._host_pose(), True), on_frame)
+        return self.run_continue(it, n_frames, produced, on_frame=on_frame)
+
+    def run_continue(self, frame_iter, n_frames: int, produced: int, on_frame=None):
+        """Per-frame loop from an initialized state; ``frame_iter`` yields frames
+        ``produced, produced+1, ...``. Inlier starvation triggers a re-bootstrap over
+        the next ``rebootstrap_skip + 1`` frames (held anchor pose meanwhile); a weak
+        burst extends at its end, and a burst broken from its start slides forward."""
+        cfg = self.cfg
+        skip = max(cfg.bootstrap.rebootstrap_skip, 1)
+        min_m = cfg.bootstrap.min_matches
+        max_extend = 4
+        it = iter(frame_iter)
+        rebootstrap_buf: list = []
+        anchor: tuple | None = None  # (R, t, pre-failure speed)
+        slides = 0
+        while produced < n_frames:
+            try:
+                img = next(it)
+            except StopIteration:
+                break
+            produced += 1
+            if rebootstrap_buf:
+                rebootstrap_buf.append(img)
+                if len(rebootstrap_buf) < skip + 1:
+                    self._emit(self._pose_result(anchor[0], anchor[1], False), on_frame)
+                    continue
+                scale = anchor[2] * (len(rebootstrap_buf) - 1) if anchor[2] else None
+                n_inl = self.bootstrap(rebootstrap_buf, R0=anchor[0], t0=anchor[1], scale=scale)
+                if n_inl >= min_m:
+                    rebootstrap_buf = []
+                    self._emit(self._pose_result(*self._host_pose(), True), on_frame)
+                    continue
+                if n_inl < max(min_m // 4, 4) and slides < 30:
+                    # broken from the window start: slide the window forward one frame
+                    rebootstrap_buf.pop(0)
+                    slides += 1
+                    self._emit(self._pose_result(anchor[0], anchor[1], False), on_frame)
+                    continue
+                if len(rebootstrap_buf) < skip + 1 + max_extend:
+                    # weak but live geometry: extend the window end, hold the anchor
+                    self._emit(self._pose_result(anchor[0], anchor[1], False), on_frame)
+                    continue
+                # best effort: accept the weak init rather than stall
+                rebootstrap_buf = []
+                self._emit(self._pose_result(*self._host_pose(), False), on_frame)
+                continue
+            res = self.step(img)
+            self._emit(res, on_frame)
+            if int(self.state.health) >= 2:
+                self.n_rebootstraps += 1
+                rebootstrap_buf = [img]
+                slides = 0
+                anchor = (*self._host_pose(), self._recent_step_scale())
+        return self.trajectory
+
+    # -- checkpoint / resume --------------------------------------------------
+    def save(self, path: str, produced: int):
+        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP §A: checkpoint/resume)")
+
+    def resume(self, path: str) -> int:
+        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP §A: checkpoint/resume)")
