@@ -8,12 +8,15 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
 1. Device: requires CUDA; reads the card's name and power limit from ``nvidia-smi``.
 2. Build: compiles the hand-written kernels from ``lcvo_tpu_torch/csrc`` into
    ``build/torch_ext`` (``nvcc``, ``sm_90a``).
-3. Kernel against plain version: ``extract_blocks`` against its plain PyTorch gather
-   on f32 and bf16 images of the padded pyramid-level sizes of the KITTI-resolution
-   main path, N in {2048, 2047}, S in {21, 29, 33}, with centers that clamp at all four
-   borders. Tolerance: exact (the kernel is a copy). Times the kernel and the plain
-   version at the main path's level-0 target shape with CUDA graphs of back-to-back
-   launches and CUDA events.
+3. Kernel against plain version: ``extract_blocks`` against its plain PyTorch
+   pad-and-gather on f32 and bf16 images of the pyramid-level sizes of the
+   KITTI-resolution main path, an odd-width one and one with S == H; N in
+   {2048, 2047, 5, 1}; S in {21, 29, 30, 33}; ``pad`` 0 and (S+1)//2; centers past all
+   four borders and corners, centers whose ``cx + pad`` rounds across an integer, NaN
+   and infinite centers. Tolerance: exact (the kernel is a copy). Times the kernel and
+   the plain version at the main path's level-0 target call, and with ``pad=0`` on the
+   edge-padded copy of the same image, with CUDA graphs of back-to-back launches and
+   CUDA events.
 4. Main path: renders 42 synthetic corridor frames at 1240x376 and runs
    ``VisualOdometry(load_config(), K, device="cuda").run_chunked(frames, chunk=16)``
    (bootstrap, two chunks of 16, three tail frames) with the launch counters set to 0
@@ -60,7 +63,7 @@ def _say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _graph_ms(fn, inner: int = 50, reps: int = 15) -> float:
+def graph_ms(fn, inner: int = 50, reps: int = 15) -> float:
     """Device time of one ``fn()`` call: a CUDA graph of ``inner`` back-to-back calls,
     replayed ``reps`` times, each replay timed with CUDA events; the median replay over
     ``inner``. Graph replay removes the host's launch cost from the measurement."""
@@ -107,10 +110,11 @@ def _eager_ms(fn, n: int = 200) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def _padded_level_shapes(cfg) -> list[tuple[int, int, int]]:
-    """(H, W, S) of the edge-padded images the main path hands ``extract_blocks``:
-    per level, the target block S = w+2+2*margin and its pad (S+1)//2, for the
-    in-pipeline tracker's margins and for the bootstrap's."""
+def _level_calls(cfg) -> list[tuple[int, int, int, int]]:
+    """(H, W, S, pad) of the calls the main path makes to ``extract_blocks``: per
+    pyramid level the unpadded image size, the target block S = w+2+2*margin and its
+    pad (S+1)//2, for the in-pipeline tracker's margins and for the bootstrap's. (The
+    template call of a level has the same image and pad and S = w+6.)"""
     from lcvo_tpu_torch.core.state import pyramid_dims
 
     k = cfg.klt
@@ -118,29 +122,54 @@ def _padded_level_shapes(cfg) -> list[tuple[int, int, int]]:
     n_lvl = k.track_levels or k.levels
     mc = k.track_margin_coarse or k.track_margin
     track = [mc if l == n_lvl - 1 and n_lvl > 1 else k.track_margin for l in range(n_lvl)]
-    shapes = []
+    calls = []
     for margins in (track, [k.margin] * k.levels):
         for l, m in enumerate(margins):
             S = k.window + 2 + 2 * m
-            p = (S + 1) // 2
-            h, w = dims[l]
-            if (h + 2 * p, w + 2 * p, S) not in shapes:
-                shapes.append((h + 2 * p, w + 2 * p, S))
-    return shapes
+            call = (*dims[l], S, (S + 1) // 2)
+            if call not in calls:
+                calls.append(call)
+    return calls
 
 
-def _border_centers(n: int, H: int, W: int, S: int, gen, device):
+def _test_centers(n: int, H: int, W: int, S: int, gen, device):
+    """``n`` centers drawn from a pool of random ones over [-S, W+S] x [-S, H+S] and
+    fixed ones: past all four borders and corners, just below an integer (so that
+    ``cx + pad`` rounds up across it in f32), just below zero, NaN and infinite."""
     import torch
 
-    c = torch.rand((n, 2), generator=gen, device=device)
+    c = torch.rand((max(n, 64), 2), generator=gen, device=device)
     c = c * torch.tensor([W + 2.0 * S, H + 2.0 * S], device=device) - S
-    # explicit clamps at all four borders and corners
     far = 3.0 * S
-    fixed = torch.tensor([[-far, -far], [W + far, H + far], [-far, H + far], [W + far, -far],
-                          [W / 2, -far], [W / 2, H + far], [-far, H / 2], [W + far, H / 2]],
-                         device=device)
+    below = [float(np.nextafter(np.float32(k), np.float32(0))) for k in (1, 2, 8, 64)]
+    nan, inf = float("nan"), float("inf")
+    fixed = [[-far, -far], [W + far, H + far], [-far, H + far], [W + far, -far],
+             [W / 2, -far], [W / 2, H + far], [-far, H / 2], [W + far, H / 2],
+             *[[b, b] for b in below], [below[0], H / 2], [W / 2, below[1]],
+             [-1e-8, -1e-8], [-1e-30, 5.0], [W - 1.0, H - 1.0], [0.0, 0.0],
+             [nan, 10.0], [10.0, nan], [nan, nan], [inf, -inf], [-inf, inf], [inf, inf]]
+    fixed = torch.tensor(fixed, dtype=torch.float32, device=device)
     c[: fixed.shape[0]] = fixed
-    return c
+    return c[torch.randperm(c.shape[0], generator=gen, device=device)[:n]]
+
+
+def bound_bytes(img, centers, S: int, pad: int) -> int:
+    """Bytes ``extract_blocks`` must move for these inputs: the image pixels its blocks
+    cover (each read once), the centers, the blocks and the origins."""
+    import torch
+
+    from lcvo_tpu_torch.ops.klt_extract import extract_blocks_plain
+
+    H, W = img.shape
+    N = centers.shape[0]
+    _, o = extract_blocks_plain(img, centers, S, pad)
+    cover = torch.zeros((H, W), dtype=torch.bool, device=img.device)
+    r = torch.arange(S, device=img.device)
+    oy = (o[:, 1].long()[:, None, None] + r[None, :, None]).clamp(0, H - 1)
+    ox = (o[:, 0].long()[:, None, None] + r[None, None, :]).clamp(0, W - 1)
+    cover[oy.expand(-1, S, S), ox.expand(-1, S, S)] = True
+    elt = img.element_size()
+    return int(cover.sum().item()) * elt + N * 2 * 4 + N * S * S * elt + N * 2 * 4
 
 
 def kernel_phase(cfg) -> dict:
@@ -152,53 +181,59 @@ def kernel_phase(cfg) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    shapes = _padded_level_shapes(cfg)
+    calls = _level_calls(cfg)
+    sizes = sorted({(H, W) for (H, W, _, _) in calls}, reverse=True)
+    sizes += [(47, 155), (29, 155)]      # an odd width; S == H for S = 29
     max_err = 0.0
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for (H, W, _) in shapes:
+        for (H, W) in sizes:
             img = (torch.rand((H, W), generator=gen, device=dev) * 255).to(dtype)
-            for N in (2048, 2047):
-                for S in (21, 29, 33):
-                    c = _border_centers(N, H, W, S, gen, dev)
-                    b, o = extract_blocks(img, c, S)
-                    bp, op = extract_blocks_plain(img, c, S)
-                    torch.cuda.synchronize()
-                    err = max((b.float() - bp.float()).abs().max().item(),
-                              (o - op).abs().max().item())
-                    max_err = max(max_err, err)
-                    if not (torch.equal(b, bp) and torch.equal(o, op) and o.dtype == c.dtype):
-                        raise AssertionError(
-                            f"extract_blocks differs from its plain version: {dtype} "
-                            f"{H}x{W} N={N} S={S} max|err|={err}")
-                    n_cases += 1
-    _say(f"[kernel] extract_blocks == plain on {n_cases} cases "
-         f"(f32+bf16, shapes {shapes}, N 2048/2047, S 21/29/33): max|err| {max_err}")
+            for N in (2048, 2047, 5, 1):
+                for S in (21, 29, 30, 33):
+                    for pad in (0, (S + 1) // 2):
+                        if S > H + 2 * pad:
+                            continue
+                        c = _test_centers(N, H, W, S, gen, dev)
+                        b, o = extract_blocks(img, c, S, pad=pad)
+                        bp, op = extract_blocks_plain(img, c, S, pad=pad)
+                        torch.cuda.synchronize()
+                        err = max((b.float() - bp.float()).abs().max().item(),
+                                  (o - op).abs().max().item())
+                        max_err = max(max_err, err)
+                        if not (torch.equal(b, bp) and torch.equal(o, op)
+                                and o.dtype == c.dtype and b.dtype == dtype):
+                            raise AssertionError(
+                                f"extract_blocks differs from its plain version: {dtype} "
+                                f"{H}x{W} N={N} S={S} pad={pad} max|err|={err}")
+                        n_cases += 1
+    _say(f"[kernel] extract_blocks == plain on {n_cases} cases (f32+bf16, sizes {sizes}, "
+         f"N 2048/2047/5/1, S 21/29/30/33, pad 0 and (S+1)//2): max|err| {max_err}")
 
-    # timing at the main path's level-0 target call: f32, N = 2048, S = 29
-    H, W, S = shapes[0]
+    # timing at the main path's level-0 target call: f32, N = 2048, S = 29, pad = 15 on
+    # the unpadded level; and the same blocks with pad = 0 on the edge-padded copy
+    H, W, S, p = calls[0]
     N = cfg.state.max_tracks + cfg.state.max_candidates
-    p = (S + 1) // 2
     img = torch.rand((H, W), generator=gen, device=dev) * 255
     c = torch.rand((N, 2), generator=gen, device=dev)
-    c = c * torch.tensor([W - 2.0 * p, H - 2.0 * p], device=dev) + p
-    ms = _graph_ms(lambda: extract_blocks(img, c, S))
-    plain_ms = _graph_ms(lambda: extract_blocks_plain(img, c, S))
-    eager_ms = _eager_ms(lambda: extract_blocks(img, c, S))
-    # bytes the function must move for these centers: the image pixels its blocks
-    # cover (each read once), the centers, the blocks and the origins
-    _, o = extract_blocks_plain(img, c, S)
-    cover = torch.zeros((H, W), dtype=torch.bool, device=dev)
-    r = torch.arange(S, device=dev)
-    oy = o[:, 1].long()[:, None, None] + r[None, :, None]
-    ox = o[:, 0].long()[:, None, None] + r[None, None, :]
-    cover[oy.expand(-1, S, S), ox.expand(-1, S, S)] = True
-    elt = img.element_size()
-    nbytes = int(cover.sum().item()) * elt + N * 2 * 4 + N * S * S * elt + N * 2 * 4
+    c = c * torch.tensor([float(W), float(H)], device=dev)
+    ms = graph_ms(lambda: extract_blocks(img, c, S, pad=p))
+    plain_ms = graph_ms(lambda: extract_blocks_plain(img, c, S, pad=p))
+    eager_ms = _eager_ms(lambda: extract_blocks(img, c, S, pad=p))
+    nbytes = bound_bytes(img, c, S, p)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    _say(f"[kernel] extract_blocks f32 {H}x{W} N={N} S={S}: kernel {ms:.5f} ms "
+    _say(f"[kernel] extract_blocks f32 {H}x{W} pad={p} N={N} S={S}: kernel {ms:.5f} ms "
          f"(graph replay; {eager_ms:.5f} ms per eager call with host launch cost), "
-         f"plain gather {plain_ms:.5f} ms, bytes moved {nbytes}, bound {bound_ms:.5f} ms")
+         f"plain pad+gather {plain_ms:.5f} ms, bytes moved {nbytes}, bound {bound_ms:.5f} ms, "
+         f"bound/kernel {bound_ms / ms:.3f}")
+    img_p = torch.nn.functional.pad(img[None, None], (p, p, p, p), mode="replicate")[0, 0]
+    c_p = c + p
+    ms0 = graph_ms(lambda: extract_blocks(img_p, c_p, S))
+    plain_ms0 = graph_ms(lambda: extract_blocks_plain(img_p, c_p, S))
+    nbytes0 = bound_bytes(img_p, c_p, S, 0)
+    _say(f"[kernel] extract_blocks f32 {img_p.shape[0]}x{img_p.shape[1]} pad=0 N={N} S={S}: "
+         f"kernel {ms0:.5f} ms, plain gather {plain_ms0:.5f} ms, bytes moved {nbytes0}, "
+         f"bound {nbytes0 / HBM_BYTES_PER_S * 1e3:.5f} ms")
     kernels.reset_launches()
     return {
         "name": "extract_blocks",
@@ -211,8 +246,6 @@ def kernel_phase(cfg) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-        "eager_ms": eager_ms,
-        "bytes": nbytes,
     }
 
 

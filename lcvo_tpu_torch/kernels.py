@@ -36,7 +36,8 @@ def reset_launches() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.lcvo_extract_blocks_f32, lib.lcvo_extract_blocks_bf16):
-        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp]
+        # img, H, W, centers, N, S, pad, G, n_groups, blocks, origins, stream
+        fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, vp, vp, vp]
         fn.restype = ci
     lib.lcvo_cuda_error_string.argtypes = [ci]
     lib.lcvo_cuda_error_string.restype = ctypes.c_char_p

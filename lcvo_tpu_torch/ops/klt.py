@@ -17,7 +17,6 @@ flagged through the status gates, as in the JAX package.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 # (N, S, S) integer-aligned blocks around centers (x, y) and their clamped origins:
 # the hand-written CUDA kernel for CUDA tensors, its plain version for CPU tensors
@@ -50,10 +49,6 @@ def _sample_blocks(blocks: torch.Tensor, qx, qy, w: int) -> torch.Tensor:
     return torch.bmm(torch.bmm(Ry, blocks.float()), Cx.transpose(1, 2))
 
 
-def _edge_pad(img: torch.Tensor, p: int) -> torch.Tensor:
-    return F.pad(img[None, None], (p, p, p, p), mode="replicate")[0, 0]
-
-
 def _track_level(prev_img, next_img, pts_l, d, window, iters, eps,
                  iter_dtype=torch.float32, margin: int = _MARGIN):
     """One pyramid level of IC-LK. pts_l, d in this level's pixel units.
@@ -64,17 +59,11 @@ def _track_level(prev_img, next_img, pts_l, d, window, iters, eps,
     r = (w - 1) // 2
     S = w + 2 + 2 * margin     # target block: sampling span + wander margin
     S_t = w + 2 + 2 * 2        # template block: sampled once, bilinear + gradient slack
-    # edge-pad so a block fits around any in-image point
+    # blocks of the images edge-replicated by p, so a block fits around any in-image
+    # point; the extraction clamps its reads, no padded copy is made
     p = (S + 1) // 2
-    prev_p = _edge_pad(prev_img, p)
-    next_p = _edge_pad(next_img, p)
-
-    # the pad offset (p, p) is added as a scalar: a tensor built from a Python list
-    # would be a host-to-device copy that waits for the stream
-    tblocks, torig = _extract_blocks(prev_p, pts_l + p, S_t)
-    nblocks, norig = _extract_blocks(next_p, pts_l + d + p, S)
-    torig = torig - p
-    norig = norig - p
+    tblocks, torig = _extract_blocks(prev_img, pts_l, S_t, pad=p)
+    nblocks, norig = _extract_blocks(next_img, pts_l + d, S, pad=p)
 
     # template + central-difference gradients from one (w+2)-sized sample
     qt = pts_l - torig

@@ -16,7 +16,7 @@ from lcvo_tpu.ops import klt as jklt
 from lcvo_tpu.ops.klt_pallas import extract_blocks_pallas
 from lcvo_tpu_torch import kernels
 from lcvo_tpu_torch.ops import klt as tklt
-from lcvo_tpu_torch.ops.klt_extract import extract_blocks, extract_blocks_plain
+from lcvo_tpu_torch.ops.klt_extract import extract_blocks, extract_blocks_plain, slab_plan
 
 
 def _image(rng, H, W):
@@ -116,3 +116,135 @@ def test_wrapper_rejects_bad_arguments():
         extract_blocks(img, torch.zeros(4, 2), 21)
     with pytest.raises(ValueError):
         extract_blocks(img, torch.zeros(4, 2, device="meta"), 5)
+
+
+# ---- the edge padding folded into the extraction (``pad=``) ----
+
+def _centers_pad_cases(rng, n, H, W, S, nan=True):
+    """Centers past every border and corner, centers just below an integer (so that
+    ``cx + pad`` rounds up across it in f32) and just below zero, infinities and, with
+    ``nan``, NaNs."""
+    c = _centers_all_borders(rng, n, H, W, S)
+    below = [np.nextafter(np.float32(k), np.float32(0)) for k in (1, 2, 8)]
+    inf = np.inf
+    extra = [[b, b] for b in below] + [[below[0], H / 2], [W / 2, below[1]],
+                                       [-1e-8, -1e-8], [-1e-30, 5.0], [0.0, 0.0],
+                                       [W - 1.0, H - 1.0], [inf, -inf], [-inf, inf]]
+    if nan:
+        extra += [[np.nan, 10.0], [10.0, np.nan], [np.nan, np.nan]]
+    c[8: 8 + len(extra)] = np.array(extra, np.float32)
+    return c
+
+
+_PAD_CASES = [(50, 70, 15, 8, 40), (94, 310, 33, 17, 64), (47, 155, 29, 15, 63),
+              (29, 155, 29, 15, 33), (61, 97, 30, 15, 40), (20, 24, 33, 17, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,S,p,N", _PAD_CASES)
+def test_plain_with_pad_equals_pad_then_extract(rng, H, W, S, p, N, dtype):
+    """``extract_blocks_plain(img, c, S, pad=p)`` is, exactly, the composition the
+    tracker used before the pad was folded in: extract from the edge-padded copy at
+    ``c + p`` and take ``p`` off the origins."""
+    img = torch.from_numpy(_image(rng, H, W)).to(dtype)
+    c = torch.from_numpy(_centers_pad_cases(rng, N, H, W, S))
+    b, o = extract_blocks_plain(img, c, S, pad=p)
+    padded = torch.nn.functional.pad(img[None, None], (p, p, p, p), mode="replicate")[0, 0]
+    bp, op = extract_blocks_plain(padded, c + p, S)
+    assert torch.equal(b, bp) and torch.equal(o, op - p)
+    assert b.dtype == dtype and o.dtype == torch.float32
+    # origins in the coordinates of the image given; every border was clamped
+    assert o[:, 0].min() == -p and o[:, 0].max() == W + p - S
+    assert o[:, 1].min() == -p and o[:, 1].max() == H + p - S
+    # each element is the edge-clamped read the kernel does
+    oy = (o[:, 1].long()[:, None] + torch.arange(S)[None, :]).clamp(0, H - 1)
+    ox = (o[:, 0].long()[:, None] + torch.arange(S)[None, :]).clamp(0, W - 1)
+    assert torch.equal(b, img[oy[:, :, None], ox[:, None, :]])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,S,p,N", _PAD_CASES)
+def test_plain_with_pad_matches_xla_path_on_padded_image(rng, H, W, S, p, N, dtype):
+    """Against the JAX package as ``klt._track_level`` calls it: edge-pad, extract at
+    ``c + p``, take ``p`` off the origins."""
+    img = _image(rng, H, W)
+    c = _centers_pad_cases(rng, N, H, W, S, nan=False)
+    jimg = jnp.asarray(img).astype(dtype)
+    jb, jo = jklt._extract_blocks(jnp.pad(jimg, p, mode="edge"), jnp.asarray(c) + p, S)
+    timg = torch.from_numpy(np.array(jimg.astype(jnp.float32)))
+    if dtype is not np.float32:
+        timg = timg.to(torch.bfloat16)
+    tb, to = extract_blocks_plain(timg, torch.from_numpy(c), S, pad=p)
+    np.testing.assert_array_equal(tb.float().numpy(), np.asarray(jb.astype(jnp.float32)))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo) - p)
+
+
+def test_pad_is_added_in_f32_before_the_floor():
+    """``floor(cx + p)`` in f32 is not ``floor(cx) + p`` for every cx: the largest f32
+    below 1 plus 15 rounds to 16. Both packages add first; so does the kernel."""
+    H, W, S, p = 40, 60, 9, 15
+    cx = float(np.nextafter(np.float32(1), np.float32(0)))
+    img = torch.arange(H * W, dtype=torch.float32).reshape(H, W)
+    c = torch.tensor([[cx, 20.0], [-1e-8, 20.0]])
+    _, o = extract_blocks_plain(img, c, S, pad=p)
+    _, jo = jklt._extract_blocks(jnp.pad(jnp.asarray(img.numpy()), p, mode="edge"),
+                                 jnp.asarray(c.numpy()) + p, S)
+    assert o[:, 0].tolist() == [1.0 - 4, 0.0 - 4]          # not floor(cx) - 4 = [-4, -5]
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo) - p)
+
+
+@pytest.mark.parametrize("H,W,S,N", [(50, 70, 15, 40), (61, 97, 29, 27)])
+def test_pad_zero_is_the_unpadded_function(rng, H, W, S, N):
+    img = _image(rng, H, W)
+    c = _centers_pad_cases(rng, N, H, W, S, nan=False)
+    b0, o0 = extract_blocks_plain(torch.from_numpy(img), torch.from_numpy(c), S, pad=0)
+    b, o = extract_blocks_plain(torch.from_numpy(img), torch.from_numpy(c), S)
+    jb, jo = jklt._extract_blocks(jnp.asarray(img), jnp.asarray(c), S)
+    assert torch.equal(b0, b) and torch.equal(o0, o)
+    np.testing.assert_array_equal(b0.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(o0.numpy(), np.asarray(jo))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pad", [0, 11, 40])
+def test_cpu_wrapper_with_pad_runs_plain_version_without_counting(rng, dtype, pad):
+    H, W, S = 64, 96, 21
+    img = torch.from_numpy(_image(rng, H, W)).to(dtype)
+    c = torch.from_numpy(_centers_pad_cases(rng, 37, H, W, S))
+    kernels.reset_launches()
+    b, o = extract_blocks(img, c, S, pad=pad)
+    bp, op = extract_blocks_plain(img, c, S, pad=pad)
+    assert torch.equal(b, bp) and torch.equal(o, op)
+    assert kernels.LAUNCHES == {"extract_blocks": 0}
+
+
+@pytest.mark.parametrize("S,pad,exc", [(5, -1, ValueError), (5, 1.5, ValueError),
+                                       (5, None, ValueError), (23, 1, ValueError),
+                                       (33, 1, ValueError)])
+def test_wrapper_rejects_bad_pad(S, pad, exc):
+    """pad must be an int >= 0, and the block must fit the padded image (20x30 here:
+    S = 23 needs pad >= 2)."""
+    with pytest.raises(exc):
+        extract_blocks(torch.zeros(20, 30), torch.zeros(4, 2), S, pad=pad)
+
+
+def test_wrapper_accepts_block_larger_than_image_when_padded():
+    b, o = extract_blocks(torch.ones(20, 30), torch.zeros(4, 2), 23, pad=2)
+    assert b.shape == (4, 23, 23) and bool((b == 1).all())
+    assert o.tolist() == [[-2.0, -2.0]] * 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("S", [21, 29, 30, 32, 33, 7])
+@pytest.mark.parametrize("N", [1, 5, 2047, 2048])
+def test_slab_plan_aligned_slabs_cover_every_track_once(N, S, itemsize):
+    """The kernel's cut of the output: slabs of G tracks that are multiples of 16
+    bytes (so each starts 16-byte aligned), then a tail of fewer than G single
+    tracks."""
+    G, n_groups = slab_plan(N, S, itemsize)
+    assert 1 <= G <= 32                       # kMaxGroup of the kernel
+    assert (G * S * S * itemsize) % 16 == 0
+    assert 0 <= N - n_groups * G < G
+    covered = [n for g in range(n_groups) for n in range(g * G, (g + 1) * G)]
+    covered += list(range(n_groups * G, N))
+    assert covered == list(range(N))
