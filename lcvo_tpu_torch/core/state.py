@@ -66,8 +66,8 @@ class VOState(NamedTuple):
     prev_image: torch.Tensor  # (H, W) float32 — previous grayscale frame
     prev_pyramid: tuple       # previous frame's pyramid, level 0 = full resolution
     health: torch.Tensor     # () int32 — consecutive inlier-starvation counter
-    prev_desc: torch.Tensor | None = None        # sift-sift mode only (not ported yet)
-    prev_desc_valid: torch.Tensor | None = None
+    prev_desc: torch.Tensor | None = None        # (D, 128) float32, sift-sift mode only
+    prev_desc_valid: torch.Tensor | None = None  # (D,) bool
     prev_R: torch.Tensor | None = None   # (3, 3) pose before R/t: velocity model
     prev_t: torch.Tensor | None = None   # (3,)
 
@@ -230,14 +230,17 @@ def pyramid_dims(H: int, W: int, levels: int) -> list[tuple[int, int]]:
 def make_vo_state(cfg, image_shape, device="cuda") -> VOState:
     """Fresh (pre-bootstrap) state with empty tables."""
     device = resolve_device(device)
-    if cfg.find_new_candidates_method == "sift-sift":
-        raise NotImplementedError(
-            "sift-sift candidate mode is not ported yet (ROADMAP §A, frontend/sift.py)")
     H, W = image_shape
     pyr_dtype = getattr(torch, cfg.runtime.dtype)
     pyr = tuple(torch.zeros(d, dtype=pyr_dtype, device=device)
                 for d in pyramid_dims(H, W, cfg.klt.levels))
     f32 = dict(dtype=torch.float32, device=device)
+    prev_desc = prev_desc_valid = None
+    if cfg.find_new_candidates_method == "sift-sift":
+        # previous frame's descriptor table, matched against the new frame's
+        D = cfg.descriptor.max_keypoints
+        prev_desc = torch.zeros((D, 128), **f32)
+        prev_desc_valid = torch.zeros((D,), dtype=torch.bool, device=device)
     return VOState(
         tracks=make_track_table(cfg.state.max_tracks, device),
         cands=make_candidate_table(cfg.state.max_candidates, device),
@@ -247,6 +250,8 @@ def make_vo_state(cfg, image_shape, device="cuda") -> VOState:
         prev_image=torch.zeros((H, W), **f32),
         prev_pyramid=pyr,
         health=torch.zeros((), dtype=torch.int32, device=device),
+        prev_desc=prev_desc,
+        prev_desc_valid=prev_desc_valid,
         prev_R=torch.eye(3, **f32),
         prev_t=torch.zeros((3,), **f32),
     )

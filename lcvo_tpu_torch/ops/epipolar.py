@@ -1,10 +1,11 @@
-"""Essential-matrix estimation: batched 8-point RANSAC + cheirality pose recovery
-(port of the eight-point path of ``lcvo_tpu/ops/epipolar.py``).
+"""Essential-matrix estimation: batched RANSAC + cheirality pose recovery (port of
+``lcvo_tpu/ops/epipolar.py``).
 
 All hypotheses are solved in parallel: minimal 8-point sets → SVD right singular
-vector → rank-2 projection → Sampson scoring of every hypothesis against every
-correspondence (MSAC) → cheirality decomposition → Gauss-Newton polish on the Sampson
-objective. Point inputs are normalized image coordinates; thresholds are
+vector → rank-2 projection (or minimal 5-point sets through
+:mod:`lcvo_tpu_torch.ops.five_point`) → Sampson scoring of every hypothesis against
+every correspondence (MSAC) → cheirality decomposition → Gauss-Newton polish on the
+Sampson objective. Point inputs are normalized image coordinates; thresholds are
 ``thresh_px / fx``.
 """
 
@@ -15,6 +16,7 @@ from torch.func import jacfwd
 
 from lcvo_tpu_torch.core import geometry as geo
 from lcvo_tpu_torch.ops import ransac
+from lcvo_tpu_torch.ops.five_point import five_point
 
 
 def _homogeneous(x: torch.Tensor) -> torch.Tensor:
@@ -134,21 +136,31 @@ def essential_ransac(
 ):
     """Robust essential matrix from normalized correspondences.
 
-    Returns (E (3,3), inliers (N,) bool, n_inliers). ``idx`` (n_hyp, 8) injects the
-    minimal sets (tests feed the JAX package's); otherwise they are drawn from ``gen``.
+    Returns (E (3,3), inliers (N,) bool, n_inliers). ``thresh`` is the Sampson distance
+    threshold in normalized units (pixel_thresh / fx). ``solver`` selects the minimal
+    solver: "eight_point" (batched DLT, the default) or "five_point" (Nistér, as in
+    ``cv2.findEssentialMat``: ``n_hyp // 10`` samples of 5, up to 10 hypotheses each,
+    invalid ones scored inf). ``idx`` injects the minimal sets, (n_hyp, 8) or
+    (n_hyp // 10, 5) (tests feed the JAX package's); otherwise they are drawn from
+    ``gen``.
     """
-    if solver == "five_point":
-        raise NotImplementedError(
-            "five_point essential solver is not ported yet (ROADMAP §A, ops/five_point.py)")
-    if solver != "eight_point":
-        raise ValueError(f"unknown essential solver: {solver!r}")
     N = x1.shape[0]
     h1 = _homogeneous(x1)
     h2 = _homogeneous(x2)
-    if idx is None:
-        idx = ransac.sample_minimal_sets(gen, N, valid, n_hyp, 8)  # (H, 8)
-    E_h = project_to_essential(eight_point(x1[idx], x2[idx]))      # (H, 3, 3)
-    err = geo.sampson_error(E_h, h1, h2)                            # (H, N)
+    if solver == "five_point":
+        if idx is None:
+            idx = ransac.sample_minimal_sets(gen, N, valid, max(n_hyp // 10, 1), 5)  # (S, 5)
+        E_h, hyp_ok = five_point(x1[idx], x2[idx])                  # (S, 10, 3, 3)
+        E_h = E_h.reshape(-1, 3, 3)
+        err = geo.sampson_error(E_h, h1, h2)                        # (S*10, N)
+        err = err.masked_fill(~hyp_ok.reshape(-1)[:, None], float("inf"))
+    elif solver == "eight_point":
+        if idx is None:
+            idx = ransac.sample_minimal_sets(gen, N, valid, n_hyp, 8)  # (H, 8)
+        E_h = project_to_essential(eight_point(x1[idx], x2[idx]))      # (H, 3, 3)
+        err = geo.sampson_error(E_h, h1, h2)                            # (H, N)
+    else:
+        raise ValueError(f"unknown essential solver: {solver!r}")
     thr2 = thresh * thresh
     score, _ = ransac.msac_score(err, valid, thr2)
     E_best = ransac.take(E_h, ransac.best_hypothesis(score))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from lcvo_tpu_torch.core import geometry as geo
+from lcvo_tpu_torch.core.constants import on_device as _const
 from lcvo_tpu_torch.ops import ransac
 
 _DK_ITERS = 40
@@ -27,17 +28,6 @@ _DK_SEED = np.array([(0.4 + 0.9j) ** k for k in range(1, 5)], np.complex64)
 _NODES = np.array([-2.0, -1.0, 0.0, 1.0, 2.0], np.float32)
 _VANDERMONDE_INV = np.linalg.inv(
     np.stack([_NODES ** k for k in range(4, -1, -1)], axis=-1)).astype(np.float32)
-
-# numpy constants copied to each device once: a per-call copy from the host would make
-# the step wait for the stream
-_ON_DEVICE: dict = {}
-
-
-def _const(a: np.ndarray, device) -> torch.Tensor:
-    key = (id(a), str(device))
-    if key not in _ON_DEVICE:
-        _ON_DEVICE[key] = torch.from_numpy(a).to(device)
-    return _ON_DEVICE[key]
 
 
 def quartic_roots(coeffs: torch.Tensor) -> torch.Tensor:

@@ -6,13 +6,16 @@
 One frame runs pyramid build → joint KLT over tracks and candidates (the CUDA
 block-extraction kernel on the card) → PnP-RANSAC localization → inlier filtering →
 anchor re-triangulation → candidate validation, triangulation and promotion →
-masked re-detection, all as fixed-shape tensor code with no host round trip. The host
+re-detection of candidates (corners, or SIFT keypoints, in sift-sift mode only those
+whose descriptor does not match the previous frame), all as fixed-shape tensor code
+with no host round trip. The host
 loop (:class:`VisualOdometry`) reads results back once per chunk and performs
 re-bootstrap recovery when the ``health`` counter says tracking collapsed.
 
-Ported: the ``shi-mask``/``harris-mask`` candidate modes, the KLT bootstrap with the
-eight-point essential solver, BA off. Other settings raise ``NotImplementedError``
-naming the ROADMAP item that will port them.
+Ported: the ``shi-mask``/``harris-mask``/``sift-mask``/``sift-sift`` candidate modes,
+the KLT and the SIFT-matching bootstrap, the eight-point and five-point essential
+solvers, BA off. Window BA and checkpoint/resume raise ``NotImplementedError`` naming
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from lcvo_tpu_torch.config import VOConfig
 from lcvo_tpu_torch.core import geometry as geo
 from lcvo_tpu_torch.core import state as st
 from lcvo_tpu_torch.core.state import resolve_device
+from lcvo_tpu_torch.frontend import sift as sift_mod
+from lcvo_tpu_torch.frontend.match import knn_match_ratio, mutual_match
 from lcvo_tpu_torch.ops import epipolar, harris, pnp
 from lcvo_tpu_torch.ops.klt import pyramidal_klt
 from lcvo_tpu_torch.ops.pyramid import build_pyramid
@@ -44,23 +49,32 @@ class FrameResult(NamedTuple):
     reproj_rms: torch.Tensor  # () float — RMS reprojection error of inliers (px)
 
 
+_CANDIDATE_MODES = ("shi-mask", "harris-mask", "sift-mask", "sift-sift")
+
+
 def check_supported(cfg: VOConfig) -> None:
     """Raise for settings this port does not cover yet (ROADMAP §A)."""
-    if cfg.find_new_candidates_method in ("sift-mask", "sift-sift"):
-        raise NotImplementedError(
-            f"find_new_candidates_method={cfg.find_new_candidates_method!r} needs the SIFT "
-            "frontend, not ported yet (ROADMAP §A: sift-sift / sift-mask)")
-    if cfg.find_new_candidates_method not in ("shi-mask", "harris-mask"):
+    if cfg.find_new_candidates_method not in _CANDIDATE_MODES:
         raise ValueError(f"unknown find_new_candidates_method: {cfg.find_new_candidates_method!r}")
-    if cfg.bootstrap.init_method == "sift":
-        raise NotImplementedError(
-            "bootstrap.init_method='sift' needs the SIFT frontend, not ported yet "
-            "(ROADMAP §A: sift-sift / sift-mask)")
-    if cfg.ransac.e_solver == "five_point":
-        raise NotImplementedError(
-            "ransac.e_solver='five_point' is not ported yet (ROADMAP §A: five_point)")
     if cfg.ba.enabled:
         raise NotImplementedError("ba.enabled: window BA is not ported yet (ROADMAP §A: window BA)")
+
+
+def _sift_features(cfg: VOConfig, image: torch.Tensor, compute_desc: bool = True):
+    """SIFT keypoints (and descriptors) of one frame at the config's settings."""
+    det = cfg.detector
+    return sift_mod.sift(
+        image,
+        max_keypoints=cfg.descriptor.max_keypoints,
+        octaves=det.sift_octaves,
+        scales_per_octave=det.sift_scales_per_octave,
+        contrast_thresh=det.sift_contrast_thresh,
+        edge_thresh=det.sift_edge_thresh,
+        border=cfg.klt.border,
+        compute_desc=compute_desc,
+        desc_method=cfg.descriptor.method,
+        patch_size=cfg.descriptor.patch_size,
+    )
 
 
 def _K_tensor(K, device) -> torch.Tensor:
@@ -89,7 +103,7 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
     mc = kltc.track_margin_coarse or kltc.track_margin
     margins = tuple(mc if l == n_lvl - 1 and n_lvl > 1 else kltc.track_margin
                     for l in range(n_lvl))
-    method = cfg.find_new_candidates_method.split("-")[0]
+    mode = cfg.find_new_candidates_method
 
     def process_frame(state: st.VOState, image: torch.Tensor, gen=None, pnp_sampler=None):
         with record_function("lcvo.pyramid"):
@@ -102,12 +116,13 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
         with record_function("lcvo.map"):
             tracks, cands, n_promoted = _update_map(tracks, cands, R, t)
         with record_function("lcvo.detect"):
-            cands = _detect(image, tracks, cands, R, t)
+            cands, new_desc, new_desc_valid = _detect(state, image, tracks, cands, R, t)
 
         health = torch.where(pose_ok, torch.zeros_like(state.health), state.health + 1)
         new_state = st.VOState(
             tracks=tracks, cands=cands, R=R, t=t, frame_idx=state.frame_idx + 1,
             prev_image=image, prev_pyramid=pyr_new, health=health,
+            prev_desc=new_desc, prev_desc_valid=new_desc_valid,
             # this frame's predecessor pose: the next frame's velocity model
             prev_R=state.R, prev_t=state.t,
         )
@@ -225,20 +240,36 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
         cands = st.prune_candidates(cands, ~promote & (cands.age < max_cand_age))
         return tracks, cands, n_promoted
 
-    def _detect(image, tracks, cands, R, t):
-        # ------ 4. re-detection of new candidates ------
-        pts_det, _, det_ok = harris.detect_corners(
-            image,
-            max_corners=min(det.max_corners, cfg.state.max_new_per_frame),
-            quality_level=det.quality_level, cells_y=det.grid_cells_y,
-            cells_x=det.grid_cells_x, cells_topk=det.cells_topk, method=method,
-            window=det.window, border=kltc.border, harris_k=det.harris_k,
-        )
+    def _detect(state, image, tracks, cands, R, t):
+        # ------ 4. re-detection of new candidates, in the mode the config selects ------
+        new_desc = new_desc_valid = None
+        if mode in ("shi-mask", "harris-mask"):
+            pts_det, _, det_ok = harris.detect_corners(
+                image,
+                max_corners=min(det.max_corners, cfg.state.max_new_per_frame),
+                quality_level=det.quality_level, cells_y=det.grid_cells_y,
+                cells_x=det.grid_cells_x, cells_topk=det.cells_topk,
+                method=mode.split("-")[0],
+                window=det.window, border=kltc.border, harris_k=det.harris_k,
+            )
+        else:
+            with record_function("lcvo.detect.sift"):
+                feats = _sift_features(cfg, image, compute_desc=(mode == "sift-sift"))
+            pts_det, det_ok = feats.pts, feats.valid
+            if mode == "sift-sift":
+                # keypoints whose descriptor matches the previous frame are old
+                # content: only unmatched ones become candidates
+                with record_function("lcvo.detect.match"):
+                    _, matched = knn_match_ratio(
+                        feats.desc, feats.valid, state.prev_desc, state.prev_desc_valid,
+                        ratio=cfg.descriptor.ratio_thresh)
+                det_ok = det_ok & ~matched
+                new_desc, new_desc_valid = feats.desc, feats.valid
         det_ok = harris.suppress_near_existing(pts_det, det_ok, tracks.P, tracks.valid,
                                                det.min_distance)
         det_ok = harris.suppress_near_existing(pts_det, det_ok, cands.C, cands.valid,
                                                det.min_distance)
-        return st.insert_into_candidates(cands, pts_det, R, t, det_ok)
+        return st.insert_into_candidates(cands, pts_det, R, t, det_ok), new_desc, new_desc_valid
 
     return process_frame
 
@@ -373,10 +404,21 @@ class VisualOdometry:
         imgs = [self._frame(f).to(torch.float32) for f in frames]
         pyr_dtype = getattr(torch, cfg.runtime.dtype)
         pyrs = [build_pyramid(im.to(pyr_dtype), cfg.klt.levels) for im in imgs]
-        pts0, ok = self._detect0(imgs[0])
-        pts = pts0
-        for i in range(len(imgs) - 1):
-            pts, ok = self._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
+        f1 = None
+        if cfg.bootstrap.init_method == "sift":
+            # reference init: SIFT detect+describe both endpoint frames, mutual
+            # nearest-neighbour match with Lowe's ratio
+            f0 = _sift_features(cfg, imgs[0])
+            f1 = _sift_features(cfg, imgs[-1])
+            idx, ok = mutual_match(f0.desc, f0.valid, f1.desc, f1.valid,
+                                   ratio=cfg.descriptor.ratio_thresh)
+            pts0 = f0.pts
+            pts = f1.pts[idx]
+        else:
+            pts0, ok = self._detect0(imgs[0])
+            pts = pts0
+            for i in range(len(imgs) - 1):
+                pts, ok = self._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
         R, t, X, good, n_inl = self._two_view(self._gen, pts0, pts, ok)
         if scale is not None and np.isfinite(scale) and scale > 1e-6:
             # uniform scaling of the two-view geometry preserves all observations
@@ -403,10 +445,25 @@ class VisualOdometry:
         c0 = geo.camera_center(R0t, t0t).cpu().numpy()
         c_prev = c_last - (c_last - c0) / max(len(imgs) - 1, 1)
         prev_t = -(R_last @ torch.as_tensor(c_prev.astype(np.float32), device=dev))
-        self.state = state._replace(
+        state = state._replace(
             tracks=tracks, R=R_last, t=t_last, prev_R=R_last.clone(), prev_t=prev_t,
             prev_image=imgs[-1], prev_pyramid=pyrs[-1],
         )
+        mode = cfg.find_new_candidates_method
+        if mode.startswith("sift"):
+            # the step's SIFT constants (band matrices, sample grids) go to the device
+            # now, not inside the first process_frame
+            sift_mod.prepare(*imgs[0].shape, dev, octaves=cfg.detector.sift_octaves,
+                             scales_per_octave=cfg.detector.sift_scales_per_octave,
+                             patch_size=cfg.descriptor.patch_size)
+        if mode == "sift-sift":
+            # seed the previous-frame descriptor table with the last bootstrap frame so
+            # the first step filters already-seen keypoints instead of flooding the
+            # candidate set
+            if f1 is None:
+                f1 = _sift_features(cfg, imgs[-1])
+            state = state._replace(prev_desc=f1.desc, prev_desc_valid=f1.valid)
+        self.state = state
         n = int(n_inl)
         if n < cfg.bootstrap.min_matches:
             warnings.warn(

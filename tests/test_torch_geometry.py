@@ -397,13 +397,6 @@ def test_recover_pose_and_refine_match_jax(rng):
     close(tt2, jt2, 1e-4)
 
 
-def test_five_point_solver_not_ported():
-    x = torch.zeros(10, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tepi.essential_ransac(None, x, x, torch.ones(10, dtype=torch.bool), 1e-3,
-                              solver="five_point")
-
-
 def test_quirk2_eight_point_minimal_set_is_not_the_null_vector(rng):
     """ROADMAP §C quirk 2: the thin SVD of an (8, 9) system has an (8, 9) Vh, so its
     last row is the 8th right singular vector, not the null vector. The port keeps

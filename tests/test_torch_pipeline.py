@@ -250,16 +250,16 @@ def test_step_builders_default_to_cuda(seq, build):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"find_new_candidates_method": "sift-sift"}, "sift"),
-    ({"find_new_candidates_method": "sift-mask"}, "sift"),
-    ({"bootstrap": {"init_method": "sift"}}, "sift"),
-    ({"ransac": {"e_solver": "five_point"}}, "five_point"),
     ({"ba": {"enabled": True}}, "window BA"),
 ])
 def test_unported_settings_raise(seq, over, item):
+    """The SIFT modes and the five-point solver are ported
+    (tests/test_torch_pipeline_sift.py); window BA still names its ROADMAP item."""
     cfg = load_config(overrides=over)
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A: {item}"):
         VisualOdometry(cfg, seq.K, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §A: {item}"):
+        make_chunk_fn(cfg, seq.K, "cpu")
 
 
 def test_checkpoint_resume_not_ported(seq):

@@ -4,9 +4,11 @@ print one JSON line: each side's ATE (Sim(3)-aligned, against the exact ground t
 pose_ok rate, re-bootstrap count and wall time, and the two trajectories' distance.
 
     python tools/port_parity_cpu.py --width 416 --height 160 --frames 42 --chunk 16 --seed 0
+    python tools/port_parity_cpu.py --config configs/reference.yaml --width 1240 --height 376
 
-Both run ``run_chunked`` with the default ``VOConfig`` at the given image size and
-``cfg.seed = --seed``, on uint8 frames of the synthetic corridor. The random streams
+Both run ``run_chunked`` with the default ``VOConfig``, or with the YAML file given by
+``--config``, at the given image size and ``cfg.seed = --seed``, on uint8 frames of the
+synthetic corridor. The random streams
 differ (JAX PRNG vs a torch.Generator), so the trajectories agree to a tolerance, not
 bit for bit; ``traj_distance_m`` is unaligned, so it includes the monocular scale each
 run fixes at bootstrap. One run at 1240x376 takes under a minute on the CPU.
@@ -36,6 +38,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=42)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0, help="cfg.seed of both packages")
+    ap.add_argument("--config", default=None, metavar="PATH",
+                    help="YAML file both packages load (default: the VOConfig defaults)")
     args = ap.parse_args()
 
     from lcvo_tpu.config import load_config as jload_config
@@ -50,10 +54,10 @@ def main() -> None:
     frames = np.clip(np.rint(frames), 0, 255).astype(np.uint8)
     over = {"image_width": args.width, "image_height": args.height, "seed": args.seed}
     out = {"width": args.width, "height": args.height, "frames": args.frames,
-           "chunk": args.chunk, "seed": args.seed, "device": "cpu"}
+           "chunk": args.chunk, "seed": args.seed, "config": args.config, "device": "cpu"}
     trajs = {}
-    for name, vo in (("jax", JVO(jload_config(overrides=over), seq.K)),
-                     ("torch", TVO(load_config(overrides=over), seq.K, device="cpu"))):
+    for name, vo in (("jax", JVO(jload_config(args.config, overrides=over), seq.K)),
+                     ("torch", TVO(load_config(args.config, overrides=over), seq.K, device="cpu"))):
         t0 = time.perf_counter()
         traj = np.asarray(vo.run_chunked(frames, chunk=args.chunk))
         gap = vo.cfg.bootstrap.frame_gap
