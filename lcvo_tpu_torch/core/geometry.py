@@ -39,6 +39,38 @@ def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
     return eye + a * W + b * W2
 
 
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → rotation vector (..., 3). Stable near 0."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos_t)[..., None]
+    w = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    # w = 2 sin(theta) * axis ; scale = theta / (2 sin theta), sinc-stable
+    s = torch.where(theta > 1e-6, theta / torch.clamp(2.0 * torch.sin(theta), min=1e-12), 0.5)
+    return s * w
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) [w,x,y,z] → rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
 def se3_compose(Ra, ta, Rb, tb):
     """T_a ∘ T_b : first apply T_b, then T_a. Returns (R, t)."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
@@ -99,6 +131,12 @@ def backproject(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 def normalize_points(uv: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Pixels → normalized image coordinates (x, y) with z=1 dropped."""
     return backproject(K, uv)[..., :2]
+
+
+def essential_from_pose(R, t):
+    """E = [t]_x R for relative pose (cam1→cam2: x2 = R x1 + t)."""
+    tn = t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-12)
+    return hat(tn) @ R
 
 
 def sampson_error(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

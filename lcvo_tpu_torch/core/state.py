@@ -290,3 +290,13 @@ def state_from_numpy(tree, device="cuda") -> VOState:
             for f in VOState._fields if f not in ("tracks", "cands", "prev_pyramid")}
     return VOState(tracks=tracks, cands=cands,
                    prev_pyramid=tuple(_to_tensor(p, device) for p in pyr), **rest)
+
+
+def window_from_numpy(tree, device="cuda"):
+    """Build the port's ``KeyframeWindow`` from a JAX ``KeyframeWindow`` already turned
+    into numpy arrays (a NamedTuple, or a dict keyed by field name): the BA window's
+    counterpart of :func:`state_from_numpy`."""
+    from lcvo_tpu_torch.solve.ba.window import KeyframeWindow
+
+    device = resolve_device(device)
+    return KeyframeWindow(*[_to_tensor(_field(tree, f), device) for f in KeyframeWindow._fields])

@@ -51,6 +51,23 @@ def quartic_roots(coeffs: torch.Tensor) -> torch.Tensor:
     return z
 
 
+def _kabsch(Pc: torch.Tensor, Pw: torch.Tensor):
+    """Rigid transform world→camera from 3 paired points: Pc ≈ R Pw + t.
+
+    Batched Kabsch via 3x3 SVD. Pc, Pw: (..., 3, 3) rows = points. The P3P path uses
+    :func:`_triad_align` (no SVD); this is the least-squares alternative."""
+    muc = torch.mean(Pc, dim=-2, keepdim=True)
+    muw = torch.mean(Pw, dim=-2, keepdim=True)
+    H = torch.einsum("...ni,...nj->...ij", Pw - muw, Pc - muc)
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det((U @ Vt).transpose(-1, -2)))
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
+    # R maps world → camera: R = V diag(1,1,d) U^T (from H = U S V^T of the w→c covariance)
+    R = torch.einsum("...ji,...j,...jk->...ik", Vt, D, U.transpose(-1, -2))
+    t = (muc - torch.einsum("...ij,...nj->...ni", R, muw))[..., 0, :]
+    return R, t
+
+
 def _triad_align(Pc: torch.Tensor, Pw: torch.Tensor):
     """Rigid world→camera transform from 3 exactly corresponding points (rows):
     orthonormal triads of both triangles, composed as ``R = M_c M_w^T``."""

@@ -8,14 +8,17 @@ block-extraction kernel on the card) → PnP-RANSAC localization → inlier filt
 anchor re-triangulation → candidate validation, triangulation and promotion →
 re-detection of candidates (corners, or SIFT keypoints, in sift-sift mode only those
 whose descriptor does not match the previous frame), all as fixed-shape tensor code
-with no host round trip. The host
-loop (:class:`VisualOdometry`) reads results back once per chunk and performs
-re-bootstrap recovery when the ``health`` counter says tracking collapsed.
+with no host round trip. With ``ba.enabled`` every ``ba.keyframe_every``-th frame is
+pushed into the keyframe ring and the window is refined (Schur-complement LM), also
+with no host round trip: the host keeps a mirror of ``state.frame_idx`` and decides the
+cadence from it. The host loop (:class:`VisualOdometry`) reads results back once per
+chunk, performs re-bootstrap recovery when the ``health`` counter says tracking
+collapsed, and saves and resumes checkpoints.
 
 Ported: the ``shi-mask``/``harris-mask``/``sift-mask``/``sift-sift`` candidate modes,
 the KLT and the SIFT-matching bootstrap, the eight-point and five-point essential
-solvers, BA off. Window BA and checkpoint/resume raise ``NotImplementedError`` naming
-the ROADMAP item that will port them.
+solvers, sliding-window BA (both gauges, ``landmarks_only``) in the per-frame and the
+chunked loop, and checkpoint/resume in the JAX package's file format.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from lcvo_tpu_torch.frontend.match import knn_match_ratio, mutual_match
 from lcvo_tpu_torch.ops import epipolar, harris, pnp
 from lcvo_tpu_torch.ops.klt import pyramidal_klt
 from lcvo_tpu_torch.ops.pyramid import build_pyramid
+from lcvo_tpu_torch.solve.ba import window as win_mod
+from lcvo_tpu_torch.utils import checkpoint as ckpt
 
 
 class FrameResult(NamedTuple):
@@ -53,11 +58,11 @@ _CANDIDATE_MODES = ("shi-mask", "harris-mask", "sift-mask", "sift-sift")
 
 
 def check_supported(cfg: VOConfig) -> None:
-    """Raise for settings this port does not cover yet (ROADMAP §A)."""
+    """Raise for settings the step does not know."""
     if cfg.find_new_candidates_method not in _CANDIDATE_MODES:
         raise ValueError(f"unknown find_new_candidates_method: {cfg.find_new_candidates_method!r}")
-    if cfg.ba.enabled:
-        raise NotImplementedError("ba.enabled: window BA is not ported yet (ROADMAP §A: window BA)")
+    if cfg.ba.enabled and cfg.ba.gauge not in ("oldest", "newest"):
+        raise ValueError(f"unknown ba.gauge: {cfg.ba.gauge!r}")
 
 
 def _sift_features(cfg: VOConfig, image: torch.Tensor, compute_desc: bool = True):
@@ -340,24 +345,84 @@ def make_bootstrap_fns(cfg: VOConfig, K, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def make_chunk_fn(cfg: VOConfig, K, device="cuda"):
-    """``chunk_fn(state, frames (chunk,H,W), gen) -> (state', (R (chunk,3,3),
-    t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``: ``process_frame`` over a
-    chunk of frames, a Python loop in place of ``lax.scan``. Nothing is read back."""
-    if cfg.ba.enabled:
-        raise NotImplementedError("ba.enabled: window BA is not ported yet (ROADMAP §A: window BA)")
+def make_ba_step(cfg: VOConfig, K, device="cuda"):
+    """The keyframe step of sliding-window BA for a fixed config and intrinsics.
+
+    ``ba_step(state, window) -> (state', window', result)``: push the current frame as
+    a keyframe and refine the window. The refined newest-keyframe pose re-anchors the
+    live pose; refined landmarks flow back into the track table (masked to
+    participants). Nothing is read back to the host."""
+    dev = resolve_device(device)
+    Kt = _K_tensor(K, dev)
+    ba = cfg.ba
+    huber_n = ba.huber_px / float(np.asarray(K)[0, 0])
+    n_fix = min(2, ba.window - 1)
+
+    def ba_step(state: st.VOState, window: win_mod.KeyframeWindow):
+        with record_function("lcvo.ba"):
+            window = win_mod.push(window, state.tracks, state.R, state.t)
+            window, tracks, R, t, res = win_mod.refine_window(
+                window, state.tracks, Kt, iters=ba.gn_iters, n_fix=n_fix, huber=huber_n,
+                lam0=ba.damping, landmarks_only=ba.landmarks_only, gauge=ba.gauge,
+            )
+        return state._replace(tracks=tracks, R=R, t=t), window, res
+
+    return ba_step
+
+
+def keyframes_in(frame_idx: int, n: int, every: int) -> int:
+    """How many of the ``n`` steps after a state with ``frame_idx`` end on a keyframe
+    (the cadence is on the state AFTER the step: ``frame_idx % every == 0``)."""
+    return (frame_idx + n) // every - frame_idx // every
+
+
+def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
+    """``chunk_fn(carry, frames (chunk,H,W), gen, frame_idx=None) -> (carry',
+    (R (chunk,3,3), t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``:
+    ``process_frame`` over a chunk of frames, a Python loop in place of ``lax.scan``,
+    with ``carry = state`` (no BA) or ``(state, window)`` (BA). Nothing is read back.
+
+    With BA the keyframe push and window refine run inside the loop, on the cadence of
+    the per-frame path, and the recorded pose is the one before the refine. The
+    cadence is decided on the host: ``frame_idx`` is ``state.frame_idx`` at the start
+    of the chunk as a Python int (the caller's mirror of it); left out, it is read
+    from the device once, which waits for it. ``on_refine(result)`` receives each
+    refine's :class:`BAResult` (tensors on the device)."""
     fn = make_process_frame(cfg, K, device)
 
-    def chunk_fn(state, frames, gen):
+    def stack(outs):
+        return (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
+                torch.stack([r.pose_ok for r in outs]),
+                torch.stack([r.n_inliers for r in outs]))
+
+    if not cfg.ba.enabled:
+        def chunk_fn(state, frames, gen, frame_idx=None):
+            outs = []
+            for j in range(frames.shape[0]):
+                state, res = fn(state, frames[j], gen)
+                outs.append(res)
+            return state, stack(outs)
+
+        return chunk_fn
+
+    ba_step = make_ba_step(cfg, K, device)
+    every = cfg.ba.keyframe_every
+
+    def chunk_fn_ba(carry, frames, gen, frame_idx=None):
+        state, window = carry
+        if frame_idx is None:
+            frame_idx = int(state.frame_idx)
         outs = []
         for j in range(frames.shape[0]):
             state, res = fn(state, frames[j], gen)
             outs.append(res)
-        return state, (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
-                       torch.stack([r.pose_ok for r in outs]),
-                       torch.stack([r.n_inliers for r in outs]))
+            if (frame_idx + j + 1) % every == 0:
+                state, window, ba_res = ba_step(state, window)
+                if on_refine is not None:
+                    on_refine(ba_res)
+        return (state, window), stack(outs)
 
-    return chunk_fn
+    return chunk_fn_ba
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +451,19 @@ class VisualOdometry:
         self.pose_ok_flags: list[bool] = []     # per-entry health (False: held/weak pose)
         self.results: list = []
         self.n_rebootstraps = 0
+        # host mirror of state.frame_idx: process_frame adds 1 without condition and
+        # every bootstrap starts again at 0, so the BA cadence is decided here and the
+        # device is never asked (checked against it once per chunk)
+        self._frame_idx = 0
+        # sliding-window BA
+        self.window: win_mod.KeyframeWindow | None = None
+        self.n_keyframes = 0                    # keyframes pushed, counted on the host
+        if cfg.ba.enabled:
+            self.window = win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, self.device)
+            self._ba_step_fn = make_ba_step(cfg, self.K, self.device)
+            # [refines run, refines whose cost is not <= the cost they started from],
+            # kept on the device and read only when ba_refine_stats() is asked
+            self._ba_stats = torch.zeros((2,), dtype=torch.int32, device=self.device)
 
     def _frame(self, f) -> torch.Tensor:
         """A frame on the device in its own dtype (uint8 stays uint8; the step casts)."""
@@ -435,6 +513,10 @@ class VisualOdometry:
         X_w = geo.se3_apply(Ri, ti, X)
 
         state = st.make_vo_state(cfg, tuple(imgs[0].shape), dev)
+        self._frame_idx = 0
+        if self.window is not None:
+            # stale keyframes must not constrain the re-initialized map
+            self.window = win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, dev)
         Kt = _K_tensor(self.K, dev)
         boot_ang = geo.bearing_angle(R0t, t0t, R_last, t_last, pts0, pts, Kt)
         tracks = st.insert_into_tracks(state.tracks, pts, X_w, good,
@@ -477,7 +559,29 @@ class VisualOdometry:
     def step(self, image) -> FrameResult:
         assert self.state is not None, "call bootstrap() first"
         self.state, res = self._process(self.state, self._frame(image), self._gen)
+        self._frame_idx += 1
+        if self.window is not None and self._frame_idx % self.cfg.ba.keyframe_every == 0:
+            self._ba_step()
         return res
+
+    def _ba_step(self):
+        """Push the current frame as a keyframe and refine the window."""
+        self.state, self.window, res = self._ba_step_fn(self.state, self.window)
+        self.n_keyframes += 1
+        self._note_refine(res)
+
+    def _note_refine(self, res):
+        bad = ~(res.cost <= res.cost0)      # a NaN cost counts as not improved
+        self._ba_stats = self._ba_stats + torch.stack(
+            [torch.ones_like(bad), bad]).to(torch.int32)
+
+    def ba_refine_stats(self) -> tuple[int, int]:
+        """(refines run, refines that ended with a cost above the one they started
+        from) since this object was made; one read-back."""
+        if self.window is None:
+            return 0, 0
+        n, bad = self._ba_stats.cpu().tolist()
+        return n, bad
 
     def record(self, res: FrameResult):
         self._append_pose(res.R.cpu().numpy(), res.t.cpu().numpy(), ok=bool(res.pose_ok))
@@ -539,18 +643,41 @@ class VisualOdometry:
         return self.state.R.cpu().numpy(), self.state.t.cpu().numpy()
 
     # -- chunked throughput mode -------------------------------------------
+    def chunk_carry(self):
+        """Carry for :func:`make_chunk_fn`'s step: the VO state, plus the BA window
+        when BA is enabled."""
+        return self.state if self.window is None else (self.state, self.window)
+
+    def set_chunk_carry(self, carry, n_frames: int | None = None):
+        """Take a chunk step's carry back. ``n_frames``: how many frames that step
+        processed, which advances the host's mirror of ``frame_idx`` and its keyframe
+        count; left out, the mirror is read from the device (which waits for it)."""
+        if self.window is None:
+            self.state = carry
+        else:
+            self.state, self.window = carry
+        if n_frames is None:
+            self._frame_idx = int(self.state.frame_idx)
+        else:
+            if self.window is not None:
+                self.n_keyframes += keyframes_in(self._frame_idx, n_frames,
+                                                 self.cfg.ba.keyframe_every)
+            self._frame_idx += n_frames
+
     def run_chunked(self, frames, chunk: int = 16, n_frames: int | None = None,
-                    on_chunk=None, checkpoint_every: int = 0):
+                    checkpoint_every: int = 0, checkpoint_path: str | None = None,
+                    on_chunk=None):
         """Replay a whole sequence in chunks (bootstrap first).
 
         ``frames``: a (T, H, W) array or any iterable of (H, W) frames. One pose per
         frame from frame ``gap`` onward, the bootstrap-end pose first, so ground truth
         aligns as ``gt[gap : gap + len(traj)]``. Tail frames that don't fill a chunk
-        run through the per-frame path. ``on_chunk(start, Rs, ts, ok, ninl)`` receives
-        each chunk's per-frame outputs."""
-        if checkpoint_every:
-            raise NotImplementedError("checkpoint/resume is not ported yet "
-                                      "(ROADMAP §A: checkpoint/resume)")
+        run through the per-frame path.
+
+        ``checkpoint_every=N`` saves a resumable checkpoint to ``checkpoint_path`` at
+        the first chunk boundary past every N processed frames; resume with
+        :meth:`resume` + :meth:`run_chunked_continue`. ``on_chunk(start, Rs, ts, ok,
+        ninl)`` receives each chunk's per-frame outputs."""
         gap = self.cfg.bootstrap.frame_gap
         if n_frames is None and hasattr(frames, "__len__"):
             n_frames = len(frames)
@@ -564,18 +691,25 @@ class VisualOdometry:
         n_boot_inl = self.bootstrap(boot)
         R, t = self._host_pose()
         self._chunk_emit(on_chunk, [R], [t], [True], ninl=[n_boot_inl])
-        return self.run_chunked_continue(it, produced=gap + 1, chunk=chunk,
-                                         n_frames=n_frames, on_chunk=on_chunk)
+        return self.run_chunked_continue(
+            it, produced=gap + 1, chunk=chunk, n_frames=n_frames,
+            checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+            on_chunk=on_chunk)
 
     def run_chunked_continue(self, frame_iter, produced: int, chunk: int = 16,
-                             n_frames: int | None = None, on_chunk=None):
-        """Chunked streaming loop from an initialized state. If a chunk ends with
-        tracking collapsed (``health >= 2``), the loop re-bootstraps over the next
-        ``rebootstrap_skip + 1`` frames, anchored at the held pose and at the
-        pre-failure metric scale, recording the held pose for those frames."""
+                             n_frames: int | None = None, checkpoint_every: int = 0,
+                             checkpoint_path: str | None = None, on_chunk=None):
+        """Chunked streaming loop from an initialized state (after the bootstrap, or
+        after :meth:`resume`); ``frame_iter`` yields frames ``produced, produced+1, …``.
+        If a chunk ends with tracking collapsed (``health >= 2``), the loop
+        re-bootstraps over the next ``rebootstrap_skip + 1`` frames, anchored at the
+        held pose and at the pre-failure metric scale, recording the held pose for
+        those frames."""
         skip = max(self.cfg.bootstrap.rebootstrap_skip, 1)
         it = iter(frame_iter)
-        chunk_fn = make_chunk_fn(self.cfg, self.K, self.device)
+        chunk_fn = make_chunk_fn(self.cfg, self.K, self.device,
+                                 on_refine=self._note_refine if self.window is not None else None)
+        last_ckpt = produced
         lookahead: list = []   # frames pulled from the stream but not yet processed
         pulled = produced
 
@@ -601,18 +735,25 @@ class VisualOdometry:
         buf = take(chunk)
         while len(buf) == chunk:
             batch = torch.from_numpy(np.stack([np.asarray(f) for f in buf])).to(self.device)
-            self.state, (Rs, ts, ok, ninl) = chunk_fn(self.state, batch, self._gen)
+            carry, (Rs, ts, ok, ninl) = chunk_fn(self.chunk_carry(), batch, self._gen,
+                                                 frame_idx=self._frame_idx)
+            self.set_chunk_carry(carry, chunk)
             # the chunk is queued on the device: pull the next frames meanwhile
             if len(lookahead) < chunk:
                 lookahead.extend(pull(chunk - len(lookahead)))
             # one read-back for everything the host needs from this chunk
             packed = torch.cat([Rs.reshape(chunk, 9), ts, ok[:, None].float(),
                                 ninl[:, None].float(),
-                                self.state.health.float().expand(chunk)[:, None]], dim=1)
+                                self.state.health.float().expand(chunk)[:, None],
+                                self.state.frame_idx.float().expand(chunk)[:, None]], dim=1)
             packed = packed.cpu().numpy()
             Rs_h = packed[:, :9].reshape(chunk, 3, 3)
             ts_h, ok_h = packed[:, 9:12], packed[:, 12] > 0.5
             ninl_h, health = packed[:, 13].astype(np.int64), int(packed[0, 14])
+            if int(packed[0, 15]) != self._frame_idx:
+                raise RuntimeError(
+                    f"the host's mirror of frame_idx ({self._frame_idx}) left the device's "
+                    f"({int(packed[0, 15])}): the state was replaced without set_chunk_carry")
             if on_chunk is not None:
                 on_chunk(len(self.trajectory), Rs_h, ts_h, ok_h, ninl_h)
             for j in range(chunk):
@@ -639,6 +780,9 @@ class VisualOdometry:
                     produced += len(burst)
                     buf = []
                     break
+            if checkpoint_every and checkpoint_path and produced - last_ckpt >= checkpoint_every:
+                self.save(checkpoint_path, produced)
+                last_ckpt = produced
             buf = take(chunk)
         for img in buf:  # tail frames that don't fill a chunk: per-frame path
             res = self.step(img)
@@ -648,11 +792,14 @@ class VisualOdometry:
         return self.trajectory
 
     # -- full-sequence convenience ------------------------------------------
-    def run(self, frame_iter, n_frames: int, bootstrap_gap: int | None = None, on_frame=None):
+    def run(self, frame_iter, n_frames: int, bootstrap_gap: int | None = None, on_frame=None,
+            checkpoint_every: int = 0, checkpoint_path: str | None = None):
         """Bootstrap + continuous operation over an iterable of frames, one pose per
         frame from frame ``gap`` onward (index-exact across failure recovery). While
         the two-view init is weak (fewer than ``bootstrap.min_matches`` inliers) the
-        window grows one frame at a time, bounded."""
+        window grows one frame at a time, bounded. ``checkpoint_every=N`` saves a
+        resumable checkpoint to ``checkpoint_path`` every N processed frames (at
+        healthy frames only)."""
         cfg = self.cfg
         gap = bootstrap_gap or cfg.bootstrap.frame_gap
         min_m = cfg.bootstrap.min_matches
@@ -678,13 +825,17 @@ class VisualOdometry:
             extends += 1
             n_inl = self.bootstrap(frames)
         self._emit(self._pose_result(*self._host_pose(), True), on_frame)
-        return self.run_continue(it, n_frames, produced, on_frame=on_frame)
+        return self.run_continue(it, n_frames, produced, on_frame=on_frame,
+                                 checkpoint_every=checkpoint_every,
+                                 checkpoint_path=checkpoint_path)
 
-    def run_continue(self, frame_iter, n_frames: int, produced: int, on_frame=None):
-        """Per-frame loop from an initialized state; ``frame_iter`` yields frames
-        ``produced, produced+1, ...``. Inlier starvation triggers a re-bootstrap over
-        the next ``rebootstrap_skip + 1`` frames (held anchor pose meanwhile); a weak
-        burst extends at its end, and a burst broken from its start slides forward."""
+    def run_continue(self, frame_iter, n_frames: int, produced: int, on_frame=None,
+                     checkpoint_every: int = 0, checkpoint_path: str | None = None):
+        """Per-frame loop from an initialized state (after the bootstrap, or after
+        :meth:`resume`); ``frame_iter`` yields frames ``produced, produced+1, ...``.
+        Inlier starvation triggers a re-bootstrap over the next ``rebootstrap_skip + 1``
+        frames (held anchor pose meanwhile); a weak burst extends at its end, and a burst
+        broken from its start slides forward."""
         cfg = self.cfg
         skip = max(cfg.bootstrap.rebootstrap_skip, 1)
         min_m = cfg.bootstrap.min_matches
@@ -731,11 +882,56 @@ class VisualOdometry:
                 rebootstrap_buf = [img]
                 slides = 0
                 anchor = (*self._host_pose(), self._recent_step_scale())
+            elif checkpoint_every and checkpoint_path and produced % checkpoint_every == 0:
+                self.save(checkpoint_path, produced)
         return self.trajectory
 
     # -- checkpoint / resume --------------------------------------------------
     def save(self, path: str, produced: int):
-        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP §A: checkpoint/resume)")
+        """Checkpoint the full host-loop state (VO state, BA window, trajectory, the
+        generator's state, frame counter) so a long replay resumes bit-exactly."""
+        ckpt.save_checkpoint(
+            path, self.state, window=self.window, trajectory=self.trajectory,
+            frame_idx=produced, generator=self._gen, poses=self.poses,
+            pose_ok_flags=self.pose_ok_flags,
+            extras={"n_rebootstraps": self.n_rebootstraps},
+        )
 
     def resume(self, path: str) -> int:
-        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP §A: checkpoint/resume)")
+        """Restore a :meth:`save` checkpoint; returns the absolute frame index to
+        continue from (feed ``frames[produced:]`` to :meth:`run_continue` or
+        :meth:`run_chunked_continue`). A checkpoint of the JAX package restores the
+        state and the window too; its PRNG key has no meaning here, so the generator
+        stays as seeded."""
+        cfg = self.cfg
+        state_tmpl = st.make_vo_state(cfg, (cfg.image_height, cfg.image_width), self.device)
+        state, window, traj, produced, rng, poses, flags, extras = ckpt.load_checkpoint(
+            path, state_tmpl, self.window)
+        if produced is None:
+            raise ValueError(f"checkpoint {path} has no frame counter: not a checkpoint of "
+                             f"the host loop")
+        if rng is not None:
+            rng_state, rng_device = rng
+            if rng_device != self.device.type:
+                raise ValueError(
+                    f"checkpoint {path} holds the state of a {rng_device!r} generator, which "
+                    f"a {self.device.type!r} generator cannot continue: resume on the device "
+                    f"type it was saved on")
+            self._gen.set_state(rng_state)
+        self.n_rebootstraps = int(extras.get("n_rebootstraps", 0))
+        self.state = state
+        # the BA cadence follows the mirror: bring it back with the state
+        self._frame_idx = int(state.frame_idx)
+        if window is not None:
+            self.window = window
+        self.trajectory = list(traj)
+        if poses is not None:
+            self.poses = list(poses)
+        else:  # positions only: synthesize identity-rotation poses
+            self.poses = []
+            for p in self.trajectory:
+                T = np.eye(4)
+                T[:3, 3] = p
+                self.poses.append(T)
+        self.pose_ok_flags = list(flags) if flags is not None else [True] * len(self.trajectory)
+        return produced

@@ -5,13 +5,16 @@ pose_ok rate, re-bootstrap count and wall time, and the two trajectories' distan
 
     python tools/port_parity_cpu.py --width 416 --height 160 --frames 42 --chunk 16 --seed 0
     python tools/port_parity_cpu.py --config configs/reference.yaml --width 1240 --height 376
+    python tools/port_parity_cpu.py --config configs/turn_robust.yaml --width 1240 --height 376 --frames 74
 
 Both run ``run_chunked`` with the default ``VOConfig``, or with the YAML file given by
 ``--config``, at the given image size and ``cfg.seed = --seed``, on uint8 frames of the
 synthetic corridor. The random streams
 differ (JAX PRNG vs a torch.Generator), so the trajectories agree to a tolerance, not
 bit for bit; ``traj_distance_m`` is unaligned, so it includes the monocular scale each
-run fixes at bootstrap. One run at 1240x376 takes under a minute on the CPU.
+run fixes at bootstrap. With a BA configuration (``configs/throughput.yaml``,
+``configs/turn_robust.yaml``) each side also reports how many slots of its keyframe ring
+are filled and where its head stands. One run at 1240x376 takes a few minutes on the CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0, help="cfg.seed of both packages")
     ap.add_argument("--config", default=None, metavar="PATH",
                     help="YAML file both packages load (default: the VOConfig defaults)")
+    ap.add_argument("--no-ba", action="store_true",
+                    help="turn ba.enabled off in both packages (what BA moves, on the same frames)")
     args = ap.parse_args()
 
     from lcvo_tpu.config import load_config as jload_config
@@ -53,8 +58,10 @@ def main() -> None:
     frames = np.stack([seq.frame(i) for i in range(args.frames)])
     frames = np.clip(np.rint(frames), 0, 255).astype(np.uint8)
     over = {"image_width": args.width, "image_height": args.height, "seed": args.seed}
+    if args.no_ba:
+        over["ba"] = {"enabled": False}
     out = {"width": args.width, "height": args.height, "frames": args.frames,
-           "chunk": args.chunk, "seed": args.seed, "config": args.config, "device": "cpu"}
+           "chunk": args.chunk, "seed": args.seed, "config": args.config, "no_ba": args.no_ba, "device": "cpu"}
     trajs = {}
     for name, vo in (("jax", JVO(jload_config(args.config, overrides=over), seq.K)),
                      ("torch", TVO(load_config(args.config, overrides=over), seq.K, device="cpu"))):
@@ -69,6 +76,9 @@ def main() -> None:
             "trajectory_len": len(traj),
             "wall_s_incl_compile": time.perf_counter() - t0,
         }
+        if vo.window is not None:
+            out[name]["keyframes_in_ring"] = int(np.asarray(vo.window.kf_valid).sum())
+            out[name]["ring_head"] = int(vo.window.head)
     d = np.linalg.norm(trajs["jax"] - trajs["torch"], axis=1)
     out["traj_distance_m"] = {"median": float(np.median(d)), "max": float(np.max(d))}
     print(json.dumps(out))
