@@ -56,7 +56,31 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    ``checkpoint_every``, a fresh ``VisualOdometry`` resumes from the file and continues,
    and its trajectory must equal path d's exactly. Prints the file's size and the save
    and load times.
-6. Output: the kernel table as one JSON line, the ``nvidia-smi`` line, then
+6. Renderers (``[render]``): the arena and corridor renderers of ``data/render.py`` on
+   the card at 1240x376. A frame rendered twice is equal; the card's frame is held
+   against the same renderer's CPU frame of the same pose (largest grey-level
+   difference and share of differing pixels, under ``RENDER_MAX_DIFF`` and
+   ``RENDER_MAX_DIFF_SHARE``); frames/s of rendering (batches of 16, fenced, host copy
+   included) and of PNG encoding (standard-library writer, 4 threads) apart.
+7. Replay (``[replay:kitti_turn]``): ``tools/port_make_replay_dataset.py`` writes
+   ``REPLAY_FRAMES`` frames of the arena loop (the first straight, the first 90 degree
+   turn and the frames after it) in the KITTI layout into a fresh directory under
+   ``chiprun_out/``; then the CLI (``lcvo_tpu_torch.cli.run``, in process) replays them
+   with ``configs/turn_robust.yaml`` at ``cfg.seed`` 1, ``--chunked --checkpoint-every
+   128``, the launch counters and the native decoder's counters set to 0 just before and
+   read just after. Checks: one pose per frame from ``frame_gap`` on; ``pose_ok`` on
+   >= 90% of rows; ATE under its bound; the KITTI, RPE and per-segment scale figures
+   present and finite; ``extract_blocks`` launches >= what the steps and the bootstrap
+   give; every frame decoded by ``native/liblcvo_native.so`` (built here with ``make``;
+   a failed build raises with the compiler's message); the growth of the process's RSS
+   during the replay under ``REPLAY_RSS_GROWTH_MB``. Prints steady frames/s from the
+   ``t`` stamps of ``metrics.jsonl``. Where matplotlib is not installed the line says
+   so and the CLI runs through ``summarise_only`` (``main`` without ``trajectory.png``).
+8. Resume through the CLI (``[replay:resume]``): the same command with ``--frames 200``
+   into a second directory leaves one checkpoint; ``--resume`` of it with
+   ``--frames REPLAY_FRAMES`` must write the ``trajectory.npz`` of the uninterrupted
+   run, exactly.
+9. Output: the kernel table as one JSON line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
@@ -64,6 +88,7 @@ The script imports neither JAX nor ``lcvo_tpu``.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import statistics
@@ -108,6 +133,28 @@ TURN_SEED = 1
 TURN_ATE_BOUND_M = 0.149
 CKPT_CHUNKS = 2          # the checkpoint phase stops after this many chunks
 POSE_OK_MIN = 0.9
+# The card's renderer against the same code on the CPU, same pose: limits set from what
+# the H100 showed (see PERF.md), with room for another CUDA version's rounding of a division.
+RENDER_MAX_DIFF = 2            # grey levels
+RENDER_MAX_DIFF_SHARE = 0.01   # share of pixels that differ at all
+# The replay: the first straight (260 frames), the first 90 degree turn (45 frames at
+# 2 deg/frame) and 95 frames after it: 140 m of path, so the KITTI metric has 100 m
+# segments.
+REPLAY_FRAMES = 400
+REPLAY_RESUME_FRAMES = 200     # the interrupted run: one checkpoint, at frame 7 + 128
+REPLAY_CKPT_EVERY = 128
+# ATE bound of the replay, set as the others: 8x the 0.1744 m that the JAX package's CLI
+# reaches on the CPU on the same 400 frames (this tool's files, rendered on the CPU: the
+# card's differ by one grey level on a few pixels in a million) with the same YAML at
+# seed 1; the command is in PERF.md. The port reaches 0.2824 m on the card and 0.2774 m
+# on the CPU, 1.6x the JAX package's on either; the phase prints the ratio.
+REPLAY_JAX_CPU_ATE_M = 0.1744
+REPLAY_ATE_BOUND_M = 1.395   # 8 x REPLAY_JAX_CPU_ATE_M
+# 400 frames of 1240x376 uint8 are 186 MB; the ingest stages a chunk and a look-ahead
+# (2 x 16 frames, 15 MB) and the prefetch queue. From the end of the second chunk (when
+# every library a step loads lazily is loaded) to the end of the replay 361 more frames
+# pass, 161 MB if they were kept: the resident set may grow by a third of that.
+REPLAY_RSS_GROWTH_MB = 55.0
 
 
 def _say(msg: str) -> None:
@@ -649,6 +696,272 @@ def checkpoint_phase(tag: str, cfg, seq, frames, n_frames: int, want_poses) -> d
     return out
 
 
+def render_phase(smi: str) -> dict:
+    """The port's renderers on the card at full size: deterministic, against the CPU
+    frame of the same pose, and their rate beside the PNG encoder's."""
+    import tempfile
+
+    import torch
+
+    from lcvo_tpu_torch.data.datasets import imwrite_gray_png
+    from lcvo_tpu_torch.data.render import FastArenaRenderer, FastCorridorRenderer
+    from lcvo_tpu_torch.data.synthetic import trajectory_loop
+
+    W, H = 1240, 376
+    traj = trajectory_loop(REPLAY_FRAMES, 0.35, straight_frames=260, turn_frames=45)
+    out = {"size": [W, H], "card": smi}
+    worst, worst_share = 0, 0.0
+    for name, make, idx in (
+            ("arena", lambda d: FastArenaRenderer(traj, W, H, device=d), (0, 283)),
+            ("arena_occluder", lambda d: FastArenaRenderer(traj, W, H, occluder=True, device=d), (290,)),
+            ("corridor", lambda d: FastCorridorRenderer(64, W, H, device=d), (63,))):
+        gpu, cpu = make("cuda"), make("cpu")
+        per = []
+        for i in idx:
+            a = gpu.frame(i)
+            if a.shape != (H, W) or a.dtype != np.uint8 or a.std() < 10.0:
+                raise AssertionError(f"[render] {name} frame {i}: {a.dtype} {a.shape}, std {a.std()}")
+            if not np.array_equal(a, gpu.frame(i)):
+                raise AssertionError(f"[render] {name} frame {i} differs between two renders")
+            if not np.array_equal(a, gpu.frames_device(i - i % 4, i - i % 4 + 4)[i % 4].cpu().numpy()):
+                raise AssertionError(f"[render] {name} frame {i} differs inside a batch")
+            d = np.abs(a.astype(np.int16) - cpu.frame(i).astype(np.int16))
+            per.append({"frame": i, "max_diff": int(d.max()), "share_differing": float((d > 0).mean())})
+            worst, worst_share = max(worst, int(d.max())), max(worst_share, float((d > 0).mean()))
+        out[name] = per
+    out["max_diff"], out["max_share_differing"] = worst, worst_share
+    out["limits"] = {"max_diff": RENDER_MAX_DIFF, "share_differing": RENDER_MAX_DIFF_SHARE}
+    if worst > RENDER_MAX_DIFF or worst_share > RENDER_MAX_DIFF_SHARE:
+        raise AssertionError(f"[render] card against CPU: {json.dumps(out)}")
+
+    r = FastArenaRenderer(traj, W, H, device="cuda")
+    r.frames_device(0, CHUNK).cpu()                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 8
+    for k in range(reps):
+        frames = r.frames_device(k * CHUNK, (k + 1) * CHUNK).cpu().numpy()
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    out["render_fps"] = reps * CHUNK / render_s
+    out["render_ms_per_frame"] = 1e3 * render_s / (reps * CHUNK)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        for k in range(4):
+            list(pool.map(lambda j: imwrite_gray_png(os.path.join(tmp, f"{k}_{j}.png"), frames[j], level=1),
+                          range(CHUNK)))
+        enc_s = time.perf_counter() - t0
+        out["png_bytes_per_frame"] = os.path.getsize(os.path.join(tmp, "0_0.png"))
+    out["encode_fps_4_threads"] = 4 * CHUNK / enc_s
+    _say("[render] " + json.dumps(out))
+    return out
+
+
+def _rss_mb() -> float:
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class _RssSampler:
+    """Resident set of this process while the block runs, sampled every 50 ms on the
+    clock that stamps ``metrics.jsonl`` (``time.monotonic``)."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = [(time.monotonic(), _rss_mb())]
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.wait(0.05):
+                self.samples.append((time.monotonic(), _rss_mb()))
+
+        self._t = threading.Thread(target=loop, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.samples.append((time.monotonic(), _rss_mb()))
+
+    def peak_mb(self, since: float = 0.0) -> float:
+        return max(r for t, r in self.samples if t >= since)
+
+    def at_mb(self, when: float) -> float:
+        """The last sample taken at or before ``when``."""
+        return [r for t, r in self.samples if t <= when][-1]
+
+
+def _run_cli(argv: list[str], out_dir: str) -> tuple[dict, str]:
+    """The port's CLI in process: ``main`` whole where matplotlib is installed (and then
+    ``trajectory.png`` must exist), else ``summarise_only``, said in plain words. No
+    error of the run is caught."""
+    import importlib.util
+
+    from lcvo_tpu_torch.cli import run as cli_run
+
+    if importlib.util.find_spec("matplotlib") is None:
+        return cli_run.summarise_only(argv), "matplotlib is not installed on this machine"
+    summary = cli_run.main(argv)
+    if not os.path.exists(os.path.join(out_dir, "trajectory.png")):
+        raise AssertionError(f"the CLI wrote no trajectory.png into {out_dir}")
+    return summary, "trajectory.png written"
+
+
+def replay_phase(root: str, smi: str) -> tuple[dict, int]:
+    """An on-disk turn dataset through the product's entry point: written by the dataset
+    tool, decoded by the native library on the Prefetcher's thread, replayed by the CLI.
+    Then the same replay interrupted and resumed through the CLI. Returns the printed
+    summary and the replay's ``extract_blocks`` launches."""
+    import shutil
+
+    from lcvo_tpu_torch.data import native_loader
+
+    sys.path.insert(0, os.path.join(root, "tools"))
+    tag = "replay:kitti_turn"
+    work = os.path.join(root, "chiprun_out", "smoke_replay")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if not native_loader.available():
+        raise AssertionError(f"[{tag}] the native PNG decoder is not loaded: "
+                             f"{native_loader.build_error()}")
+    try:
+        return _replay_checks(root, smi, work, tag)
+    finally:
+        # 400 PNGs are ~130 MB: what stays under chiprun_out/ is the runs' small files
+        shutil.rmtree(os.path.join(work, "data"), ignore_errors=True)
+        for d in ("run_a", "run_b", ""):
+            for f in glob.glob(os.path.join(work, d, "checkpoint*.npz")):
+                os.remove(f)
+
+
+def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]:
+    import shutil
+
+    import yaml
+
+    import port_make_replay_dataset
+    import port_run_replay
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.config import load_config
+    from lcvo_tpu_torch.data import native_loader
+
+    made = port_make_replay_dataset.make_dataset("kitti-turn", frames=REPLAY_FRAMES,
+                                                 out=os.path.join(work, "data"), device="cuda")
+    if made["written"] != REPLAY_FRAMES:
+        raise AssertionError(f"[{tag}] the dataset tool wrote {made['written']} frames into a fresh directory")
+    _say(f"[{tag}] dataset " + json.dumps(made))
+
+    # the file's own settings at seed 1: the CLI has no seed flag, the YAML carries it
+    with open(os.path.join(root, TURN_CONFIG)) as fh:
+        doc = yaml.safe_load(fh)
+    doc["seed"] = TURN_SEED
+    cfg_path = os.path.join(work, "turn_robust_seed1.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(doc, fh)
+    cfg = load_config(cfg_path)
+
+    def argv(out, *extra):
+        return ["--config", cfg_path, "--dataset", "kitti", "--data-root", os.path.join(work, "data"),
+                "--chunked", "--checkpoint-every", str(REPLAY_CKPT_EVERY), "--out", out, *extra]
+
+    # what one frame costs the Prefetcher's thread, beside a step's tens of milliseconds
+    from lcvo_tpu_torch.data.datasets import kitti
+
+    ds = kitti(made["root"])
+    t0 = time.perf_counter()
+    for i in range(2 * CHUNK):
+        ds.frame(i)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (2 * CHUNK)
+
+    out_a = os.path.join(work, "run_a")
+    native_loader.reset_counts()
+    kernels.reset_launches()
+    with _RssSampler() as rss:
+        summary, plots = _run_cli(argv(out_a), out_a)
+    launches = kernels.LAUNCHES["extract_blocks"]
+    decoded = native_loader.counts()
+
+    N, gap, skip = REPLAY_FRAMES, cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
+    n_reb = summary["n_rebootstraps"]
+    # 6 KLT + 6 SIFT launches per step, the KLT bootstrap's 6 per hop and 6 for its last
+    # frame's descriptors; a re-bootstrap holds skip + 1 frames back from the steps
+    want_launches = (6 * gap + 6) + 12 * (N - 1 - gap) - 12 * (skip + 1) * n_reb
+    # RSS once everything a step loads lazily is loaded (the end of the second chunk)
+    # against its peak over the rest of the replay: frames kept would show here
+    warm_rows = 1 + 2 * CHUNK
+    with open(os.path.join(out_a, "metrics.jsonl")) as fh:
+        t_warm = json.loads(fh.readlines()[warm_rows - 1])["t"]
+    rss_warm = rss.at_mb(t_warm)
+    finite = ("ate_rmse_m", "kitti_t_err_pct", "kitti_r_err_deg_per_m", "rpe_trans_rmse_m",
+              "rpe_rot_rmse_deg", "seg_scale_worst")
+    bad = [k for k in finite if not (isinstance(summary.get(k), float) and np.isfinite(summary[k]))]
+    out = {
+        "frames_on_disk": N, "summary": summary, "plots": plots, "card": smi,
+        "ate_bound_m": REPLAY_ATE_BOUND_M, "jax_cpu_ate_m": REPLAY_JAX_CPU_ATE_M,
+        "ate_over_jax_cpu": summary["ate_rmse_m"] / REPLAY_JAX_CPU_ATE_M,
+        "launches": launches, "launches_formula": want_launches,
+        "decoder": "native" if decoded == {"decoded": N + 1, "declined": 0} else f"mixed: {decoded}",
+        "native_decoded": decoded["decoded"], "native_declined": decoded["declined"],
+        "decode_ms_per_frame": decode_ms, "prefetch_depth": cfg.runtime.prefetch_depth,
+        "steady_fps_from_t_stamps": port_run_replay.steady_fps(os.path.join(out_a, "metrics.jsonl")),
+        "rss_mb_at_start": rss.samples[0][1], "rss_mb_warm": rss_warm, "rss_mb_peak": rss.peak_mb(),
+        "rss_growth_mb_over_frames_after_warm": rss.peak_mb(t_warm) - rss_warm,
+        "frames_after_warm": N - gap - warm_rows, "rss_growth_limit_mb": REPLAY_RSS_GROWTH_MB,
+        "mb_if_those_frames_were_staged": (N - gap - warm_rows) * 1240 * 376 / 2**20,
+    }
+    _say(f"[{tag}] " + json.dumps(out))
+    if summary["frames"] != N - gap:
+        raise AssertionError(f"[{tag}] {summary['frames']} poses for {N} frames at gap {gap}")
+    if summary["pose_ok_rate"] < POSE_OK_MIN:
+        raise AssertionError(f"[{tag}] pose_ok on {summary['pose_ok_rate']:.3f} of rows < {POSE_OK_MIN}")
+    if bad:
+        raise AssertionError(f"[{tag}] summary keys absent or not finite: {bad}")
+    if not summary["ate_rmse_m"] < REPLAY_ATE_BOUND_M:
+        raise AssertionError(f"[{tag}] ATE {summary['ate_rmse_m']} m >= {REPLAY_ATE_BOUND_M} m")
+    if launches < want_launches:
+        raise AssertionError(f"[{tag}] extract_blocks launched {launches} times, < {want_launches}")
+    if out["decoder"] != "native":
+        raise AssertionError(f"[{tag}] frames not all served by the native decoder: {decoded} "
+                             f"for {N} frames and the CLI's first look at frame 0")
+    if out["rss_growth_mb_over_frames_after_warm"] > REPLAY_RSS_GROWTH_MB:
+        raise AssertionError(f"[{tag}] RSS grew by {out['rss_growth_mb_over_frames_after_warm']:.0f} MB "
+                             f"over the {out['frames_after_warm']} frames after the second chunk")
+    for name in ("trajectory.npz", "metrics.jsonl", "checkpoint.npz"):
+        if not os.path.exists(os.path.join(out_a, name)):
+            raise AssertionError(f"[{tag}] the CLI left no {name}")
+
+    # interrupted at REPLAY_RESUME_FRAMES, resumed from its one checkpoint
+    tag = "replay:resume"
+    out_b = os.path.join(work, "run_b")
+    _run_cli(argv(out_b, "--frames", str(REPLAY_RESUME_FRAMES)), out_b)
+    ck = os.path.join(out_b, "checkpoint.npz")
+    with np.load(ck) as data:
+        saved_at = int(data["frame_idx_host"])
+    if saved_at != gap + 1 + REPLAY_CKPT_EVERY:
+        raise AssertionError(f"[{tag}] checkpoint taken at frame {saved_at}, expected "
+                             f"{gap + 1 + REPLAY_CKPT_EVERY}")
+    ck_keep = os.path.join(work, "checkpoint_at_%d.npz" % saved_at)
+    shutil.copy(ck, ck_keep)   # the resumed run writes later checkpoints over its own
+    resumed, _ = _run_cli(argv(out_b, "--resume", ck_keep, "--frames", str(N)), out_b)
+    with np.load(os.path.join(out_a, "trajectory.npz")) as a, \
+            np.load(os.path.join(out_b, "trajectory.npz")) as b:
+        pa, pb = a["positions"], b["positions"]
+    same = pa.shape == pb.shape and np.array_equal(pa, pb)
+    res = {"checkpoint_at_frame": saved_at, "resumed_to_frames": N, "poses": len(pb),
+           "equal_to_uninterrupted": bool(same),
+           "max_abs_diff_m": float(np.abs(pa - pb).max()) if pa.shape == pb.shape else None,
+           "ate_rmse_m": resumed.get("ate_rmse_m"), "n_rebootstraps": resumed["n_rebootstraps"]}
+    _say(f"[{tag}] " + json.dumps(res))
+    if not same:
+        raise AssertionError(f"[{tag}] the resumed CLI run left the uninterrupted one: {res}")
+    return out, launches
+
+
 def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
     """One more chunk of the main path under ``torch.profiler``: host and device span
     of each ``lcvo.*`` stage, device busy share, launches and the kernels with the
@@ -793,6 +1106,8 @@ def main() -> int:
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
     checkpoint_phase("checkpoint:turn_robust", turn_cfg, seq, frames, BA_FRAMES,
                      poses["turn_robust"])
+    render_phase(smi)
+    _, by_path["replay_kitti_turn"] = replay_phase(root, smi)
     kernels.reset_launches()
     if min(by_path.values()) < 1:
         raise AssertionError(f"a main path never launched extract_blocks: {by_path}")
