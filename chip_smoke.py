@@ -80,8 +80,28 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    into a second directory leaves one checkpoint; ``--resume`` of it with
    ``--frames REPLAY_FRAMES`` must write the ``trajectory.npz`` of the uninterrupted
    run, exactly.
-9. Output: the kernel table as one JSON line, the ``nvidia-smi`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+9. Layered entry (``[streams:kernel]``): ``extract_blocks_layered`` against its plain
+   version, exactly: at every call the streams path makes (L = 1/4/8 streams, f32 and
+   bf16, one layer per stream: the KLT target and template blocks of every level with
+   pad (S+1)//2, SIFT's flattened octave stacks with pad 0, and the SIFT caller under
+   ``torch.func.vmap`` against its per-stream calls on the CPU), and on 90 cases of
+   mixed layers (L 1/4/8 layers of 376x1240, S 21/29/33/35/59, pads per axis, centers
+   past every edge); its time at the streams path's level-0 call for L = 1, 4, 8
+   streams beside the 2-D call's.
+10. Streams (``[streams]``): ``configs/turn_robust.yaml`` at ``cfg.seed`` 1, S = 1, 2, 4, 8
+   streams bootstrapped by the single-stream bootstrap on the same frames, stacked, and
+   run through ``parallel.streams.make_multistream_chunk_step`` for 4 chunks of 16, the
+   launch counters set to 0 before and read after each S. Checks: only the layered
+   entry launched, as often per batched step for every S; every stream's ATE under
+   turn_robust's bound and pose_ok on >= 90%; no host sync in a batched chunk with
+   keyframe steps (S = 8); on the first chunk with injected samples, stream 0 at S = 1
+   equal to the unbatched ``chunk_fn`` exactly, and at S = 4 within
+   ``STREAMS_S4_VS_S1_TOL`` of S = 1 (the other streams see other frames), while the
+   same S = 4 run with stream 0 given stream 1's frames (the control) exceeds it. Prints
+   aggregate frames/s over the chunks after the first, launches per batched step and,
+   with ``--profile``, device ops per frame per stream at S = 8.
+11. Output: the kernel table as one JSON line (the 2-D entry and the layered entry),
+   the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
 """
@@ -155,6 +175,17 @@ REPLAY_ATE_BOUND_M = 1.395   # 8 x REPLAY_JAX_CPU_ATE_M
 # every library a step loads lazily is loaded) to the end of the replay 361 more frames
 # pass, 161 MB if they were kept: the resident set may grow by a third of that.
 REPLAY_RSS_GROWTH_MB = 55.0
+# The streams path: configs/turn_robust.yaml at TURN_SEED, S streams in one batched
+# chunk step, STREAMS_CHUNKS chunks of CHUNK frames after the bootstrap. Stream 0 of the
+# batched step at S = 1 must be the unbatched chunk_fn exactly (the H100 shows it on all
+# 16 frames). At S = 4 it is not: an op at 4x the batch rounds otherwise
+# (tools/port_streams_divergence.py names the first), 7e-9 after one frame grows to
+# 2.8e-3 after 16 with a few inlier counts off by 1-4 (PERF.md, Findings). The limit
+# sits between that and the control, stream 0 fed stream 1's frames (one frame of
+# motion apart), which the phase measures and requires to exceed it.
+STREAMS = (1, 2, 4, 8)
+STREAMS_CHUNKS = 4
+STREAMS_S4_VS_S1_TOL = 1e-2
 
 
 def _say(msg: str) -> None:
@@ -962,27 +993,12 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
     return out, launches
 
 
-def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
-    """One more chunk of the main path under ``torch.profiler``: host and device span
-    of each ``lcvo.*`` stage, device busy share, launches and the kernels with the
-    most device time. Writes the summary to ``out_dir``. The profiler's own cost
-    inflates the wall time; the shares are what it is for."""
-    import torch
+def _profile_summary(prof, wall_us: float, n: int):
+    """Per-frame figures of a profiled run of ``n`` frames: device busy time and idle
+    share, device ops (kernels and copies), ``lcvo.*`` stage spans, top kernels. Returns
+    the summary and the event lists it was read from."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from lcvo_tpu_torch.pipeline import make_chunk_fn
-
-    chunk_fn = make_chunk_fn(vo.cfg, vo.K, vo.device)
-    batch = torch.from_numpy(frames).to(vo.device)
-    n = frames.shape[0]
-    carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)   # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry, outs = chunk_fn(carry, batch, vo._gen, frame_idx=vo._frame_idx + n)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     # device activity: kernels and copies; the lcvo.* stage spans also appear on the
     # device timeline (as user annotations) and are counted apart
@@ -1017,6 +1033,30 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
         "stage_span_ms_per_frame": {k: v[1] / n / 1e3 for k, v in sorted(stages.items())},
         "top_kernels_ms_per_frame": [[k, v[0] / n, v[1] / n / 1e3] for k, v in top],
     }
+    return summary, dev_events, kern, stages
+
+
+def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
+    """One more chunk of the main path under ``torch.profiler``: host and device span
+    of each ``lcvo.*`` stage, device busy share, launches and the kernels with the
+    most device time. Writes the summary to ``out_dir``. The profiler's own cost
+    inflates the wall time; the shares are what it is for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lcvo_tpu_torch.pipeline import make_chunk_fn
+
+    chunk_fn = make_chunk_fn(vo.cfg, vo.K, vo.device)
+    batch = torch.from_numpy(frames).to(vo.device)
+    n = frames.shape[0]
+    carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, outs = chunk_fn(carry, batch, vo._gen, frame_idx=vo._frame_idx + n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    summary, dev_events, kern, stages = _profile_summary(prof, wall_us, n)
     # the keyframe step: host and device span of one lcvo.ba, and the device ops that
     # start inside its device-side span
     ba_dev = [(e.time_range.start, e.time_range.end) for e in dev_events if e.name == "lcvo.ba"]
@@ -1035,6 +1075,309 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
     # the headline numbers on one short line; the top kernels only in the file
     _say(f"[profile] {fname} " + json.dumps({k: v for k, v in summary.items()
                                              if k != "top_kernels_ms_per_frame"}))
+
+
+def _layered_bound_bytes(img, centers, layer, S: int, pad: int) -> int:
+    """Bytes the layered call must move: per layer what :func:`bound_bytes` counts for
+    its centers, and the layer indices."""
+    total = 0
+    for li in range(img.shape[0]):
+        mine = centers[layer == li]
+        if mine.shape[0]:
+            total += bound_bytes(img[li], mine, S, pad)
+    return total + centers.shape[0] * 4
+
+
+def _check_layered(img, c, layer, S: int, pad_y: int, pad_x: int, what: str) -> float:
+    """Layered kernel against its plain version on one input, exactly; max |err| (0.0)."""
+    import torch
+
+    from lcvo_tpu_torch.ops.klt_extract import extract_blocks_layered, extract_blocks_layered_plain
+
+    b, o = extract_blocks_layered(img, c, layer, S, pad_y, pad_x)
+    bp, op = extract_blocks_layered_plain(img, c, layer, S, pad_y, pad_x)
+    torch.cuda.synchronize()
+    err = max((b.float() - bp.float()).abs().max().item(), (o - op).abs().max().item())
+    if not (torch.equal(b, bp) and torch.equal(o, op)):
+        raise AssertionError(f"extract_blocks_layered differs from its plain version: {what} "
+                             f"{img.dtype} {tuple(img.shape)} N={c.shape[0]} S={S} pads "
+                             f"{(pad_y, pad_x)} max|err|={err}")
+    return err
+
+
+def layered_kernel_phase(turn_cfg) -> dict:
+    """The layered entry against its plain version, exactly. First at the calls the
+    streams path makes, for L = 1, 4, 8 streams in f32 and bf16, one layer per stream
+    as the batching rule builds it: the KLT target and template blocks of every pyramid
+    level with pad (S+1)//2 on both axes (centers per stream past every edge), and
+    SIFT's flattened octave stacks with pad 0 (the keypoints per stream that
+    ``sift.stack_centers`` turns into centers); there the caller itself under
+    ``torch.func.vmap`` is held against its per-stream calls on the CPU. Then L in
+    {1, 4, 8} layers of the KITTI level-0 size, S in {21, 29, 33, 35, 59}, pads per axis
+    ((p, p), (p, 0), (0, p) with p = (S+1)//2) and centers past every edge on mixed
+    layers. Then its time at the streams path's level-0 target call for L = 1, 4, 8
+    streams beside the 2-D call's, its plain version's and its bytes bound."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.core.state import pyramid_dims
+    from lcvo_tpu_torch.frontend import sift
+    from lcvo_tpu_torch.ops.klt_extract import (_stream_layers, extract_blocks,
+                                                extract_blocks_layered,
+                                                extract_blocks_layered_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    calls = _level_calls(turn_cfg)
+    H, W, S0, p0 = calls[0]
+    N = turn_cfg.state.max_tracks + turn_cfg.state.max_candidates
+    det = turn_cfg.detector
+    n_layers = det.sift_scales_per_octave + 3
+    k_oct = turn_cfg.descriptor.max_keypoints // det.sift_octaves
+    octaves = pyramid_dims(turn_cfg.image_height, turn_cfg.image_width, det.sift_octaves)
+    max_err, n_path, n_vmap = 0.0, 0, 0
+    path_shapes = set()
+    for L in (1, 4, 8):
+        layer_klt = _stream_layers(L, N, dev)
+        layer_sift = _stream_layers(L, k_oct, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for (h, w, S, pad) in calls:
+                img = (torch.rand((L, h, w), generator=gen, device=dev) * 255).to(dtype)
+                for S_call in (S, turn_cfg.klt.window + 6):      # target and template
+                    c = torch.cat([_test_centers(N, h, w, S_call, gen, dev) for _ in range(L)])
+                    max_err = max(max_err, _check_layered(img, c, layer_klt, S_call, pad, pad,
+                                                           "streams KLT"))
+                    path_shapes.add(("klt", h, w, S_call, pad))
+                    n_path += 1
+            for (h, w) in octaves:
+                S = sift.block_size(1.6, w)
+                sts = (torch.rand((L, n_layers, h, w), generator=gen, device=dev) * 255).to(dtype)
+                kps = [_stack_keypoints(k_oct, n_layers, h, w, gen, dev) for _ in range(L)]
+                flats, cs = zip(*[sift.stack_centers(sts[s], li, xy, S)[:2]
+                                  for s, (xy, li) in enumerate(kps)])
+                flat = torch.stack(flats)
+                max_err = max(max_err, _check_layered(flat, torch.cat(cs), layer_sift, S, 0, 0,
+                                                      "streams SIFT stack"))
+                path_shapes.add(("sift", *flat.shape[1:], S, 0))
+                n_path += 1
+                if dtype == torch.float32:
+                    # the caller under vmap (one layered launch) against its calls on the CPU
+                    xys = torch.stack([xy for xy, _ in kps])
+                    lis = torch.stack([li for _, li in kps])
+                    got = torch.func.vmap(lambda g, li, xy: sift._extract_stack_blocks(g, li, xy, S))(
+                        sts, lis, xys)
+                    for s in range(L):
+                        want = sift._extract_stack_blocks(sts[s].cpu(), lis[s].cpu(), xys[s].cpu(), S)
+                        if not all(torch.equal(g[s].cpu(), v) for g, v in zip(got, want)):
+                            raise AssertionError(f"vmap of _extract_stack_blocks on the card, stream "
+                                                 f"{s} of {L}, differs from the CPU: {(h, w)}")
+                    n_vmap += 1
+    _say(f"[streams:kernel] extract_blocks_layered == plain on {n_path} cases at the streams "
+         f"path's calls (L 1/4/8 streams, f32+bf16, one layer per stream; KLT N={N} per stream, "
+         f"SIFT N={k_oct} per stream; (kind, H, W, S, pad) {sorted(path_shapes)}); vmap of "
+         f"_extract_stack_blocks == its CPU calls on {n_vmap} cases: max|err| {max_err}")
+
+    n_cases = 0
+    for L in (1, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            img = (torch.rand((L, H, W), generator=gen, device=dev) * 255).to(dtype)
+            for S in (21, 29, 33, 35, 59):
+                p = (S + 1) // 2
+                for pad_y, pad_x in ((p, p), (p, 0), (0, p)):
+                    c = _test_centers(N, H, W, S, gen, dev)
+                    layer = torch.randint(0, L, (N,), generator=gen, device=dev, dtype=torch.int32)
+                    max_err = max(max_err, _check_layered(img, c, layer, S, pad_y, pad_x,
+                                                          "mixed layers"))
+                    n_cases += 1
+    _say(f"[streams:kernel] extract_blocks_layered == plain on {n_cases} cases (L 1/4/8, "
+         f"{H}x{W} layers, N={N}, S 21/29/33/35/59, f32+bf16, pads (p,p) (p,0) (0,p), mixed "
+         f"layers): max|err| {max_err}")
+
+    # the streams path's level-0 target call: L streams' images, N centers each
+    times = {}
+    for L in (1, 4, 8):
+        img = torch.rand((L, H, W), generator=gen, device=dev) * 255
+        c = torch.rand((L * N, 2), generator=gen, device=dev)
+        c = c * torch.tensor([float(W), float(H)], device=dev)
+        layer = torch.arange(L, device=dev, dtype=torch.int32).repeat_interleave(N)
+        row = {"ms": graph_ms(lambda: extract_blocks_layered(img, c, layer, S0, p0, p0))}
+        if L == 1:
+            row["two_d_ms"] = graph_ms(lambda: extract_blocks(img[0], c, S0, pad=p0))
+        row["plain_ms"] = graph_ms(lambda: extract_blocks_layered_plain(img, c, layer, S0, p0, p0),
+                                   inner=10)
+        row["bytes"] = _layered_bound_bytes(img, c, layer, S0, p0)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        times[L] = row
+        _say(f"[streams:kernel] extract_blocks_layered f32 L={L} x {H}x{W} pad={p0} "
+             f"N={L}x{N} S={S0}: " + json.dumps(row))
+    kernels.reset_launches()
+    top = times[8]
+    return {"name": "extract_blocks_layered", "route": "cuda",
+            "source": "lcvo_tpu_torch/csrc/extract_blocks.cu",
+            "replaces": "lcvo_tpu/ops/klt_pallas.py:94", "max_abs_err": max_err,
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "ms_by_streams": {str(L): r["ms"] for L, r in times.items()},
+            "two_d_ms_one_stream": times[1]["two_d_ms"]}
+
+
+def _stream_poses(R, t):
+    """Camera centers (world) of (..., 3, 3) world-to-camera rotations and (..., 3)
+    translations: -R^T t."""
+    return -np.einsum("...ji,...j->...i", R, t)
+
+
+def streams_phase(cfg, seq, frames, profile_dir: str | None) -> dict:
+    """S = 1, 2, 4, 8 streams of ``cfg`` through the batched chunk step, each stream
+    bootstrapped by the single-stream bootstrap on the same frames (so every stream
+    starts from the bootstrap the single-stream path of this file checks; the streams
+    then differ by their RANSAC draws). Per S: aggregate frames/s over the chunks after
+    the first, extraction launches per batched step, each stream's ATE and pose_ok; at
+    S = 8 (the largest) a whole chunk with keyframe steps under the sync detector and,
+    with ``--profile``, device ops per frame per stream. Then stream 0 at S = 4 against
+    the S = 1 run on the first chunk with the same injected samples."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.metrics import ate_rmse
+    from lcvo_tpu_torch.parallel import streams as ps
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+
+    dev = torch.device("cuda")
+    gap = cfg.bootstrap.frame_gap
+    n_chunks = STREAMS_CHUNKS
+    S_max = max(STREAMS)
+    vos = []
+    for _ in range(S_max):
+        vo = VisualOdometry(cfg, seq.K, device="cuda")
+        vo.bootstrap(list(frames[: gap + 1]))
+        vos.append(vo)
+    batch = torch.from_numpy(frames[gap + 1: gap + 1 + n_chunks * CHUNK]).to(dev)
+    step = ps.make_multistream_chunk_step(cfg, seq.K, device="cuda")
+    gt = seq.gt_positions()[gap: gap + 1 + n_chunks * CHUNK]
+    out = {"config": "turn_robust", "seed": cfg.seed, "frames_per_stream": gap + 1 + n_chunks * CHUNK,
+           "chunk": CHUNK, "by_streams": {}}
+    launches_per_step = {}
+    for S in STREAMS:
+        carry = ps.stack_streams([vo.chunk_carry() for vo in vos[:S]])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        Rs, ts, oks, ends = [], [], [], []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for k in range(n_chunks):
+            fr = batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1)
+            carry, (R, t, ok, _) = step(carry, fr, gen, frame_idx=k * CHUNK)
+            packed = torch.cat([R.reshape(S, CHUNK, 9), t, ok[..., None].float()], -1).cpu().numpy()
+            ends.append(time.perf_counter())
+            Rs.append(packed[..., :9].reshape(S, CHUNK, 3, 3))
+            ts.append(packed[..., 9:12])
+            oks.append(packed[..., 12] > 0.5)
+        launches = dict(kernels.LAUNCHES)
+        if launches["extract_blocks_layered"] < 1 or launches["extract_blocks"] != 0:
+            raise AssertionError(f"[streams] S={S}: launches {launches}: the batched path must "
+                                 f"go through the layered entry only")
+        launches_per_step[S] = launches["extract_blocks_layered"] / (n_chunks * CHUNK)
+        R0, t0 = vos[0]._host_pose()
+        centers = np.concatenate([np.repeat(_stream_poses(R0, t0)[None, None], S, 0),
+                                  _stream_poses(np.concatenate(Rs, 1), np.concatenate(ts, 1))], 1)
+        ok_rate = np.concatenate([np.ones((S, 1), bool), np.concatenate(oks, 1)], 1).mean(1)
+        ates = [float(ate_rmse(centers[s], gt)) for s in range(S)]
+        row = {"aggregate_fps": S * CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
+               "fps_per_stream": CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
+               "launches": launches["extract_blocks_layered"],
+               "launches_per_batched_step": launches_per_step[S],
+               "ate_m": ates, "pose_ok_rate": ok_rate.tolist()}
+        bad = [s for s in range(S) if not (np.all(np.isfinite(centers[s])) and ates[s] < TURN_ATE_BOUND_M
+                                          and ok_rate[s] >= POSE_OK_MIN)]
+        if bad:
+            raise AssertionError(f"[streams] S={S}: streams {bad} fail the ATE bound "
+                                 f"{TURN_ATE_BOUND_M} m or pose_ok >= {POSE_OK_MIN}: {row}")
+        if S == S_max:
+            # one more chunk with its keyframe steps, under the sync detector
+            fidx = n_chunks * CHUNK
+            nxt = torch.from_numpy(frames[gap + 1 + fidx: gap + 1 + fidx + CHUNK]).to(dev)
+            nxt = nxt[None].expand(S, -1, -1, -1)
+            syncs = _host_syncs(lambda: step(carry, nxt, gen, frame_idx=fidx))
+            if syncs:
+                raise AssertionError(f"[streams] S={S}: the batched chunk waits for the device at {syncs}")
+            row["host_syncs_in_a_chunk_with_keyframes"] = 0
+            if profile_dir:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0p = time.perf_counter()
+                    step(carry, nxt, gen, frame_idx=fidx)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0p) * 1e6
+                summary, _, _, _ = _profile_summary(prof, wall_us, CHUNK)
+                summary["device_ops_per_frame_per_stream"] = summary["device_ops_per_frame"] / S
+                os.makedirs(profile_dir, exist_ok=True)
+                with open(os.path.join(profile_dir, f"streams_S{S}_profile.json"), "w") as fh:
+                    json.dump(summary, fh, indent=1)
+                row["profile"] = {k: v for k, v in summary.items()
+                                  if k not in ("top_kernels_ms_per_frame", "stage_span_ms_per_frame")}
+        out["by_streams"][str(S)] = row
+        _say(f"[streams] S={S} " + json.dumps(row))
+    if len(set(launches_per_step.values())) != 1:
+        raise AssertionError(f"[streams] extraction launches per batched step grow with S: "
+                             f"{launches_per_step}")
+
+    # stream 0 at S = 4 against S = 1 and against the unbatched chunk_fn on the first
+    # chunk, the same injected samples; stream k sees the frames k on. The control: the
+    # same S = 4 run with stream 0 given stream 1's frames, read by the same check, shows
+    # what the check reads when a stream reads another's data
+    from lcvo_tpu_torch.pipeline import make_chunk_fn
+
+    sgen = torch.Generator(device=dev)
+    sgen.manual_seed(7)
+    n_hyp = cfg.ransac.pnp_hypotheses
+    valid = vos[0].state.tracks.valid.float()
+    samples = torch.multinomial(valid, 4 * CHUNK * n_hyp * 3, replacement=True,
+                                generator=sgen).reshape(4, CHUNK, n_hyp, 3)
+    fr = torch.stack([batch[k: k + CHUNK] for k in range(4)])
+    got = {}
+    swapped = fr.clone()
+    swapped[0] = fr[1]
+    for key, S, images in ((1, 1, fr), (4, 4, fr), ("control", 4, swapped)):
+        carry = ps.stack_streams([vo.chunk_carry() for vo in vos[:S]])
+        _, (R, t, ok, ninl) = step(carry, images[:S], samples[:S], frame_idx=0)
+        got[key] = (R[0].cpu(), t[0].cpu(), ok[0].cpu(), ninl[0].cpu())
+    _, (R, t, ok, ninl) = make_chunk_fn(cfg, seq.K, "cuda")(vos[0].chunk_carry(), fr[0], samples[0],
+                                                           frame_idx=0)
+    got["unbatched"] = (R.cpu(), t.cpu(), ok.cpu(), ninl.cpu())
+
+    def per_frame(a, b):
+        d = torch.maximum((a[0] - b[0]).abs().amax((1, 2)), (a[1] - b[1]).abs().amax(1))
+        return {"max_abs_diff_R_t_by_frame": d.tolist(),
+                "pose_ok_equal": bool(torch.equal(a[2], b[2])),
+                "n_inliers_equal": bool(torch.equal(a[3], b[3])),
+                "n_inliers_diff": (a[3] - b[3]).tolist()}
+
+    cmp = {"S4_vs_S1": per_frame(got[4], got[1]), "S1_vs_unbatched": per_frame(got[1], got["unbatched"]),
+           "control_S4_stream1_frames_vs_S1": per_frame(got["control"], got[1])}
+    diff = max(cmp["S4_vs_S1"]["max_abs_diff_R_t_by_frame"])
+    control = max(cmp["control_S4_stream1_frames_vs_S1"]["max_abs_diff_R_t_by_frame"])
+    one = cmp["S1_vs_unbatched"]
+    out["stream0_S4_vs_S1_max_abs_diff"] = diff
+    out["control_stream0_fed_stream1_frames_max_abs_diff"] = control
+    out["stream0_S1_equals_unbatched"] = (max(one["max_abs_diff_R_t_by_frame"]) == 0.0
+                                          and one["pose_ok_equal"] and one["n_inliers_equal"])
+    out["stream0_comparisons"] = cmp
+    _say(f"[streams] stream 0, first chunk, same samples (limit {STREAMS_S4_VS_S1_TOL} on S=4 "
+         f"against S=1, which the control must exceed; S=1 equal to the unbatched chunk_fn): "
+         + json.dumps(cmp))
+    if not out["stream0_S1_equals_unbatched"]:
+        raise AssertionError(f"[streams] the batched step at S=1 is not the unbatched chunk_fn: {one}")
+    if not (diff <= STREAMS_S4_VS_S1_TOL and cmp["S4_vs_S1"]["pose_ok_equal"]):
+        raise AssertionError(f"[streams] stream 0 at S=4 left the S=1 run: {cmp['S4_vs_S1']}")
+    if not control > STREAMS_S4_VS_S1_TOL:
+        raise AssertionError(f"[streams] stream 0 fed stream 1's frames reads {control}, within "
+                             f"the limit {STREAMS_S4_VS_S1_TOL}: the check cannot tell them apart")
+    out["launches_per_batched_step"] = launches_per_step[S_max]
+    out["launches"] = sum(r["launches"] for r in out["by_streams"].values())
+    return out
 
 
 def main() -> int:
@@ -1113,10 +1456,16 @@ def main() -> int:
         raise AssertionError(f"a main path never launched extract_blocks: {by_path}")
     row["launches"] = sum(by_path.values())
     row["launches_by_path"] = by_path
+    lrow = layered_kernel_phase(turn_cfg)
+    st = streams_phase(turn_cfg, seq, frames, args.profile)
+    lrow["launches"] = st["launches"]
+    lrow["launches_by_path"] = {f"streams_S{S}": r["launches"] for S, r in st["by_streams"].items()}
+    lrow["launches_per_batched_step"] = st["launches_per_batched_step"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "sift_ms",
             "sift_plain_ms", "sift_bound_ms", "sift_ypad_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}]}))
+    lkeys = keys[:12] + ("launches_per_batched_step", "ms_by_streams", "two_d_ms_one_stream")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

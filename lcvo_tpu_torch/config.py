@@ -288,7 +288,10 @@ class RuntimeConfig:
     #                                precision AND forces the KLT block extraction
     #                                onto the slower XLA gather path — Mosaic's
     #                                dynamic rotate is 32-bit only)
-    donate_state: bool = True      # donate the state buffer to the jitted step
+    donate_state: bool = True      # donate the state buffer to the jitted step. The
+    #                                port ignores it: eager PyTorch has no buffer
+    #                                donation (the field stays so one YAML file loads
+    #                                into both packages)
     prefetch_depth: int = 2        # frames in flight host->device
 
 

@@ -50,6 +50,13 @@
 // The 8/128 tile alignment and the dynamic roll of the Pallas kernel are Mosaic
 // constraints with no counterpart here.
 //
+// Layered entry. The image may be a stack of L layers (L, H, W) with a layer index per
+// center: each center reads its own layer, and its origin is clamped inside that layer
+// by the same formula, with a pad per axis (pad_y, pad_x). S images of S streams and
+// their centers are one launch this way (the batching rule of ops/klt_extract.py). The
+// 2-D call is the case L = 1 with no layer array and pad_y = pad_x = pad; a track's
+// layer only moves the base of its reads.
+//
 // Plain C interface, loaded with ctypes: no PyTorch headers, so nvcc compiles it in
 // seconds. Launches on the caller's stream, allocates nothing, returns the launch
 // error code. An element is copied as raw bits (uint32_t for f32, uint16_t for bf16).
@@ -64,10 +71,11 @@ constexpr int kMaxGroup = 32;   // tracks per slab, at most
 
 template <typename E>
 struct Job {
-  const E* img;
-  int H, W;
+  const E* img;           // (L, H, W)
+  int L, H, W;
   const float* centers;   // (N, 2) x, y
-  int N, S, pad;
+  const int* layer;       // (N,) layer of each center, or null: every center on layer 0
+  int N, S, pad_y, pad_x;
   int G, n_groups;        // tracks per slab; slabs; tracks from n_groups*G on are the tail
   E* blocks;              // (N, S, S)
   float* origins;         // (N, 2)
@@ -75,15 +83,18 @@ struct Job {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
-// clamped origin of track n in unpadded coordinates; also written to origins
+// clamped origin of track n in unpadded coordinates of its layer, also written to
+// origins, and the offset of that layer in the stack (a layer index outside [0, L) is
+// clamped into it, so no input reads outside the stack)
 template <typename E>
-__device__ __forceinline__ void track_origin(const Job<E>& j, int S, int n, int& ox, int& oy) {
+__device__ __forceinline__ void track_origin(const Job<E>& j, int S, int n, int& ox, int& oy,
+                                             int& base) {
   const float half = (float)((S - 1) / 2);
-  const float fp = (float)j.pad;
-  const float wx = floorf(j.centers[2 * n + 0] + fp) - half;
-  const float wy = floorf(j.centers[2 * n + 1] + fp) - half;
-  ox = (int)fminf(fmaxf(wx, 0.0f), (float)(j.W + 2 * j.pad - S)) - j.pad;
-  oy = (int)fminf(fmaxf(wy, 0.0f), (float)(j.H + 2 * j.pad - S)) - j.pad;
+  const float wx = floorf(j.centers[2 * n + 0] + (float)j.pad_x) - half;
+  const float wy = floorf(j.centers[2 * n + 1] + (float)j.pad_y) - half;
+  ox = (int)fminf(fmaxf(wx, 0.0f), (float)(j.W + 2 * j.pad_x - S)) - j.pad_x;
+  oy = (int)fminf(fmaxf(wy, 0.0f), (float)(j.H + 2 * j.pad_y - S)) - j.pad_y;
+  base = j.layer == nullptr ? 0 : clampi(j.layer[n], 0, j.L - 1) * j.H * j.W;
   j.origins[2 * n + 0] = (float)ox;
   j.origins[2 * n + 1] = (float)oy;
 }
@@ -108,24 +119,25 @@ __global__ void __launch_bounds__(kThreads) extract_blocks_kernel(const Job<E> j
     // tail: one track, scalar copy
     const int n = j.n_groups * j.G + (bid - j.n_groups);
     if (n >= j.N) return;
-    int ox, oy;
-    track_origin(j, S, n, ox, oy);   // every thread computes it; all write the same value
+    int ox, oy, base;
+    track_origin(j, S, n, ox, oy, base);  // every thread computes it; all write the same value
     E* __restrict__ dst = j.blocks + (int64_t)n * SS;
     for (int i = tid; i < SS; i += kThreads) {
       const int r = i / S;
       const int c = i - r * S;
-      dst[i] = img[clampi(oy + r, 0, H1) * j.W + clampi(ox + c, 0, W1)];
+      dst[i] = img[base + clampi(oy + r, 0, H1) * j.W + clampi(ox + c, 0, W1)];
     }
     return;
   }
 
-  __shared__ int s_ox[kMaxGroup], s_oy[kMaxGroup];
+  __shared__ int s_ox[kMaxGroup], s_oy[kMaxGroup], s_base[kMaxGroup];
   const int n0 = bid * j.G;
   if (tid < j.G) {
-    int ox, oy;
-    track_origin(j, S, n0 + tid, ox, oy);
+    int ox, oy, base;
+    track_origin(j, S, n0 + tid, ox, oy, base);
     s_ox[tid] = ox;
     s_oy[tid] = oy;
+    s_base[tid] = base;
   }
   __syncthreads();
 
@@ -144,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) extract_blocks_kernel(const Job<E> j
     Pack<E> p;
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
-      p.e[k] = img[clampi(s_oy[g] + r, 0, H1) * j.W + clampi(s_ox[g] + c, 0, W1)];
+      p.e[k] = img[s_base[g] + clampi(s_oy[g] + r, 0, H1) * j.W + clampi(s_ox[g] + c, 0, W1)];
       if (++c == S) {
         c = 0;
         if (++r == S) { r = 0; ++g; }
@@ -155,15 +167,17 @@ __global__ void __launch_bounds__(kThreads) extract_blocks_kernel(const Job<E> j
 }
 
 template <typename E>
-int launch(const void* img, int H, int W, const void* centers, int N, int S, int pad,
-           int G, int n_groups, void* blocks, void* origins, void* stream) {
+int launch(const void* img, int L, int H, int W, const void* centers, const void* layer,
+           int N, int S, int pad_y, int pad_x, int G, int n_groups, void* blocks,
+           void* origins, void* stream) {
   if (N <= 0) return 0;
   if (G < 1 || G > kMaxGroup || n_groups < 0 || (int64_t)n_groups * G > N ||
-      (n_groups > 0 && ((int64_t)G * S * S * sizeof(E)) % 16 != 0) || pad < 0 ||
-      S < 1 || S > H + 2 * pad || S > W + 2 * pad)
+      (n_groups > 0 && ((int64_t)G * S * S * sizeof(E)) % 16 != 0) || pad_y < 0 ||
+      pad_x < 0 || S < 1 || S > H + 2 * pad_y || S > W + 2 * pad_x || L < 1 ||
+      (int64_t)L * H * W >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
-  const Job<E> j{(const E*)img, H, W, (const float*)centers, N, S, pad, G, n_groups,
-                 (E*)blocks, (float*)origins};
+  const Job<E> j{(const E*)img, L, H, W, (const float*)centers, (const int*)layer, N, S,
+                 pad_y, pad_x, G, n_groups, (E*)blocks, (float*)origins};
   const int grid = n_groups + (N - n_groups * G);
   cudaStream_t st = (cudaStream_t)stream;
   switch (S) {
@@ -182,15 +196,32 @@ extern "C" {
 int lcvo_extract_blocks_f32(const void* img, int H, int W, const void* centers, int N,
                             int S, int pad, int G, int n_groups, void* blocks,
                             void* origins, void* stream) {
-  return launch<uint32_t>(img, H, W, centers, N, S, pad, G, n_groups, blocks, origins,
-                          stream);
+  return launch<uint32_t>(img, 1, H, W, centers, nullptr, N, S, pad, pad, G, n_groups,
+                          blocks, origins, stream);
 }
 
 int lcvo_extract_blocks_bf16(const void* img, int H, int W, const void* centers, int N,
                              int S, int pad, int G, int n_groups, void* blocks,
                              void* origins, void* stream) {
-  return launch<uint16_t>(img, H, W, centers, N, S, pad, G, n_groups, blocks, origins,
-                          stream);
+  return launch<uint16_t>(img, 1, H, W, centers, nullptr, N, S, pad, pad, G, n_groups,
+                          blocks, origins, stream);
+}
+
+// img (L, H, W), centers (N, 2), layer (N,) int32
+int lcvo_extract_blocks_layered_f32(const void* img, int L, int H, int W,
+                                    const void* centers, const void* layer, int N, int S,
+                                    int pad_y, int pad_x, int G, int n_groups, void* blocks,
+                                    void* origins, void* stream) {
+  return launch<uint32_t>(img, L, H, W, centers, layer, N, S, pad_y, pad_x, G, n_groups,
+                          blocks, origins, stream);
+}
+
+int lcvo_extract_blocks_layered_bf16(const void* img, int L, int H, int W,
+                                     const void* centers, const void* layer, int N, int S,
+                                     int pad_y, int pad_x, int G, int n_groups,
+                                     void* blocks, void* origins, void* stream) {
+  return launch<uint16_t>(img, L, H, W, centers, layer, N, S, pad_y, pad_x, G, n_groups,
+                          blocks, origins, stream);
 }
 
 const char* lcvo_cuda_error_string(int code) {

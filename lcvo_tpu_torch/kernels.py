@@ -22,8 +22,9 @@ SOURCES = [os.path.join(CSRC, "extract_blocks.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "torch_ext")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
-# kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"extract_blocks": 0}
+# kernel entry -> launches since the last reset_launches(): the 2-D entry of
+# extract_blocks.cu and its layered entry (a stack of layers; the batched streams)
+LAUNCHES: dict[str, int] = {"extract_blocks": 0, "extract_blocks_layered": 0}
 
 _lib = None
 
@@ -38,6 +39,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.lcvo_extract_blocks_f32, lib.lcvo_extract_blocks_bf16):
         # img, H, W, centers, N, S, pad, G, n_groups, blocks, origins, stream
         fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+        fn.restype = ci
+    for fn in (lib.lcvo_extract_blocks_layered_f32, lib.lcvo_extract_blocks_layered_bf16):
+        # img, L, H, W, centers, layer, N, S, pad_y, pad_x, G, n_groups, blocks, origins,
+        # stream
+        fn.argtypes = [vp, ci, ci, ci, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         fn.restype = ci
     lib.lcvo_cuda_error_string.argtypes = [ci]
     lib.lcvo_cuda_error_string.restype = ctypes.c_char_p

@@ -64,8 +64,8 @@ def detect_corners(
     # partition into cells (pad so H, W divide evenly)
     ch = -(-H // cells_y)
     cw = -(-W // cells_x)
-    padded = torch.full((cells_y * ch, cells_x * cw), float("-inf"), dtype=score.dtype, device=dev)
-    padded[:H, :W] = masked
+    # out of place: a write into a fresh buffer is refused under torch.func.vmap
+    padded = F.pad(masked, (0, cells_x * cw - W, 0, cells_y * ch - H), value=float("-inf"))
     cells = padded.reshape(cells_y, ch, cells_x, cw).permute(0, 2, 1, 3).reshape(cells_y, cells_x, ch * cw)
     top_vals, top_idx = torch.topk(cells, cells_topk, dim=-1)  # (cy, cx, k)
 

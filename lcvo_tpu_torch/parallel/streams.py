@@ -1,0 +1,239 @@
+"""Stream-parallel execution on one card: many independent VO streams, one set of
+launches (port of ``lcvo_tpu/parallel/streams.py``).
+
+The reference is sequential over one camera stream, so the scale-out axis is across
+streams: sequence replays, multi-camera rigs, benchmark sweeps. The JAX package
+``jax.vmap``\\ s the single-stream step over a leading stream dim. Here the same
+single-stream functions (``pipeline.make_process_frame``, ``pipeline.make_ba_step``)
+run under ``torch.func.vmap``: every op of the step runs once for all S streams, and
+the block-extraction kernel has a batching rule that makes the S streams' calls one
+launch of its layered entry (``ops/klt_extract.py``). On a card that is idle 88-95% of a
+frame because the host cannot launch faster, S streams cost about the launches of one.
+
+What the step obeys so that vmap takes it: no write into a freshly made buffer (an
+out-of-place form instead: ``F.pad``, ``torch.where``), and ``None`` for the ``None``
+leaves of a state (``prev_desc`` outside sift-sift mode) in ``in_dims``/``out_dims``.
+
+Decisions, against the JAX package's batched step:
+
+- **Randomness.** The PnP minimal sets of all streams are one draw of shape (S, ...)
+  from the one ``torch.Generator``, under ``randomness="different"``: one
+  ``multinomial`` for S streams, so the launches do not grow with S, and the streams
+  draw different samples. Stream s therefore does not repeat the draws of a
+  single-stream run with the same seed (as the JAX package's stream s, keyed by
+  ``split(key, S)[s]``, does not repeat an unsplit run). Tests inject the samples as a
+  tensor, (S, n_hyp, 3) for a step and (S, chunk, n_hyp, 3) for a chunk, in place of
+  the generator.
+- **The BA cadence.** One host mirror of ``frame_idx`` per stream (the caller's, as in
+  ``pipeline.make_chunk_fn``). At a frame where any stream is on its cadence, the
+  vmapped ``ba_step`` runs on all streams and ``torch.where`` over the stream dim keeps
+  its result only for the streams on cadence, decided on the device from
+  ``state.frame_idx`` (which the mirrors equal). That is what the JAX package's vmapped
+  ``lax.cond`` computes: under vmap a cond with a batched predicate is a select of both
+  branches. When all mirrors are equal every stream is on cadence at once and no
+  select runs.
+- As in the JAX package's batched chunk step there is no re-bootstrap inside: a
+  collapsed stream's ``health`` is the caller's to read.
+- Nothing reads back to the host inside a batched step or chunk.
+- With a mesh (:mod:`lcvo_tpu_torch.parallel.mesh`) the stream dim is split in equal
+  parts over its devices along ``axis``, one vmapped sub-batch per device, and the
+  outputs are gathered on the device of the input. On one H100 there is one part. The
+  parts run in turn from one host thread: a placeholder until one process per device
+  (``torch.distributed``) replaces it.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_map
+
+from lcvo_tpu_torch.core import state as st
+from lcvo_tpu_torch.core.state import resolve_device
+from lcvo_tpu_torch.parallel.mesh import (gather_batched_state, mesh_from_config,
+                                          shard_batched_state)
+from lcvo_tpu_torch.pipeline import make_ba_step, make_process_frame
+from lcvo_tpu_torch.solve.ba import window as win_mod
+
+
+def _dims(tree, dim=0):
+    """``in_dims``/``out_dims`` for a pytree: ``dim`` for each tensor, None for None."""
+    return tree_map(lambda x: None if x is None else dim, tree)
+
+
+def _broadcast(tree, n: int):
+    return tree_map(lambda x: None if x is None else x[None].expand((n,) + x.shape).clone(),
+                    tree)
+
+
+def stack_streams(trees: list):
+    """One batched pytree from S single-stream ones (states, windows, carries)."""
+    return tree_map(lambda *xs: None if xs[0] is None else torch.stack(xs), *trees)
+
+
+def select_stream(tree, s: int):
+    """Stream ``s`` of a batched pytree."""
+    return tree_map(lambda x: None if x is None else x[s], tree)
+
+
+def make_batched_state(cfg, image_shape, n_streams: int, device="cuda") -> st.VOState:
+    """Empty VO state with a leading stream dimension on every leaf."""
+    return _broadcast(st.make_vo_state(cfg, image_shape, device), n_streams)
+
+
+def make_batched_carry(cfg, image_shape, n_streams: int, device="cuda"):
+    """Stream-batched carry for the chunked path: the VO state, plus a batched BA
+    keyframe window when BA is enabled (the carry of ``pipeline.make_chunk_fn``)."""
+    states = make_batched_state(cfg, image_shape, n_streams, device)
+    if not cfg.ba.enabled:
+        return states
+    w0 = win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, device)
+    return states, _broadcast(w0, n_streams)
+
+
+def _n_streams(tree) -> int:
+    return next(x for x in tree_flatten(tree)[0] if x is not None).shape[0]
+
+
+class _Parts:
+    """The stream dim cut over a mesh axis: one part per device (one part, the whole
+    batch, without a mesh), and one single-stream function built per device."""
+
+    def __init__(self, cfg, mesh, axis, device, build):
+        dev = resolve_device(device)
+        if mesh is None and tuple(cfg.runtime.mesh_shape):
+            mesh = mesh_from_config(cfg, device_type=dev.type)
+            axis = mesh.axis_names[0]
+        self.mesh, self.axis = mesh, axis
+        devs = [dev] if mesh is None else mesh.devices_along(axis)
+        self.fns = [build(d) for d in devs]
+
+    def run(self, fn, trees, gen, per_stream: list | None = None):
+        """``fn(part_fn, *part_trees, gen, part_of_per_stream)`` on each part; the
+        outputs gathered on the device of the first input."""
+        n = len(self.fns)
+        if self.mesh is None:
+            return fn(self.fns[0], *trees, gen, per_stream)
+        S = _n_streams(trees[0])
+        if S % n:
+            raise ValueError(f"{S} streams do not split over the {n} devices of mesh axis "
+                             f"{self.axis!r}")
+        m = S // n
+        parts = [[None] * n if t is None else shard_batched_state(t, self.mesh, self.axis)
+                 for t in trees]
+        outs = [fn(self.fns[k], *(p[k] for p in parts), gen,
+                   None if per_stream is None else per_stream[k * m:(k + 1) * m])
+                for k in range(n)]
+        home = next(x for x in tree_flatten(trees[0])[0] if x is not None).device
+        return gather_batched_state(outs, device=home)
+
+
+def _vmapped_frame(pf, states, images, samples, gen):
+    """``process_frame`` over the stream dim: with injected samples (S, n_hyp, 3), or
+    with one draw for all streams from ``gen``."""
+    d = _dims(states)
+    if samples is not None:
+        return torch.func.vmap(
+            lambda s, im, idx: pf(s, im, None, pnp_sampler=lambda valid: idx),
+            in_dims=(d, 0, 0), out_dims=(d, 0))(states, images, samples)
+    return torch.func.vmap(lambda s, im: pf(s, im, gen), in_dims=(d, 0), out_dims=(d, 0),
+                           randomness="different")(states, images)
+
+
+def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
+    """The multi-stream step.
+
+    Returns ``step(states, images, gen_or_samples) -> (states, results, agg)``: every
+    argument and result has a leading stream dim; ``gen_or_samples`` is a
+    ``torch.Generator`` on the device of every part, or injected PnP samples
+    (S, n_hyp, 3); ``agg`` holds the sums over the streams of ``n_tracked``,
+    ``n_inliers``, ``n_promoted`` and ``pose_ok`` as 0-d tensors on the device.
+
+    When ``mesh`` is None and ``cfg.runtime.mesh_shape`` is set, the mesh comes from the
+    config (:func:`lcvo_tpu_torch.parallel.mesh.mesh_from_config`) with its first axis
+    as the stream axis."""
+    parts = _Parts(cfg, mesh, axis, device, lambda d: make_process_frame(cfg, K, d))
+
+    def part(pf, states, images, samples, gen, _):
+        return _vmapped_frame(pf, states, images, samples, gen)
+
+    def step(states, images, gen_or_samples):
+        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
+        gen = None if samples is not None else gen_or_samples
+        states, results = parts.run(part, (states, images, samples), gen)
+        agg = {
+            "tracked": torch.sum(results.n_tracked),
+            "inliers": torch.sum(results.n_inliers),
+            "promoted": torch.sum(results.n_promoted),
+            "pose_ok": torch.sum(results.pose_ok.to(torch.int32)),
+        }
+        return states, results, agg
+
+    return step
+
+
+def _select(on: torch.Tensor, new, old):
+    """Per stream: ``new`` where ``on`` (S,) is set, else ``old``, leaf by leaf."""
+    def pick(a, b):
+        if a is None:
+            return None
+        return torch.where(on.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return tree_map(pick, new, old)
+
+
+def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
+    """Stream-parallel form of the production chunk loop (``pipeline.make_chunk_fn``):
+    per frame the vmapped ``process_frame`` and, on the BA cadence, the vmapped keyframe
+    step.
+
+    Returns ``chunk_step(carry, frames (S, chunk, H, W), gen_or_samples,
+    frame_idx=None) -> (carry', (R (S, chunk, 3, 3), t (S, chunk, 3), pose_ok (S, chunk),
+    n_inliers (S, chunk)))`` with ``carry`` = states, or ``(states, windows)`` under BA.
+    ``gen_or_samples``: a ``torch.Generator`` on the device of every part, or injected
+    samples (S, chunk, n_hyp, 3). ``frame_idx``: the streams' ``state.frame_idx`` at the
+    start of the chunk as Python ints (one for all, or one per stream), the caller's
+    mirror; left out, it is read from the device once, which waits for it."""
+    ba = cfg.ba.enabled
+    every = cfg.ba.keyframe_every
+
+    def build(d):
+        return make_process_frame(cfg, K, d), (make_ba_step(cfg, K, d) if ba else None)
+
+    parts = _Parts(cfg, mesh, axis, device, build)
+
+    def part(fns, carry, frames, samples, gen, fidx):
+        pf, ba_step = fns
+        states, windows = carry if ba else (carry, None)
+        outs = []
+        for j in range(frames.shape[1]):
+            states, res = _vmapped_frame(pf, states, frames[:, j],
+                                         None if samples is None else samples[:, j], gen)
+            outs.append(res)
+            due = [(f + j + 1) % every == 0 for f in fidx] if ba else [False]
+            if any(due):
+                d, dw = _dims(states), _dims(windows)
+                new_states, new_windows, _ = torch.func.vmap(
+                    ba_step, in_dims=(d, dw), out_dims=(d, dw, 0))(states, windows)
+                if all(due):
+                    states, windows = new_states, new_windows
+                else:
+                    on = states.frame_idx % every == 0
+                    states, windows = _select(on, (new_states, new_windows), (states, windows))
+        stacked = (torch.stack([r.R for r in outs], 1), torch.stack([r.t for r in outs], 1),
+                   torch.stack([r.pose_ok for r in outs], 1),
+                   torch.stack([r.n_inliers for r in outs], 1))
+        return ((states, windows) if ba else states), stacked
+
+    def chunk_step(carry, frames, gen_or_samples, frame_idx=None):
+        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
+        gen = None if samples is not None else gen_or_samples
+        S = frames.shape[0]
+        if frame_idx is None:
+            frame_idx = (carry[0] if ba else carry).frame_idx.tolist()
+        elif isinstance(frame_idx, int):
+            frame_idx = [frame_idx] * S
+        if len(frame_idx) != S:
+            raise ValueError(f"frame_idx holds {len(frame_idx)} entries for {S} streams")
+        return parts.run(part, (carry, frames, samples), gen, list(frame_idx))
+
+    return chunk_step

@@ -381,6 +381,8 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
     (R (chunk,3,3), t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``:
     ``process_frame`` over a chunk of frames, a Python loop in place of ``lax.scan``,
     with ``carry = state`` (no BA) or ``(state, window)`` (BA). Nothing is read back.
+    ``gen`` may also be a tensor of PnP minimal sets (chunk, n_hyp, 3), injected frame
+    by frame in place of the draws (tests feed the same samples to the batched step).
 
     With BA the keyframe push and window refine run inside the loop, on the cadence of
     the per-frame path, and the recorded pose is the one before the refine. The
@@ -388,7 +390,12 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
     of the chunk as a Python int (the caller's mirror of it); left out, it is read
     from the device once, which waits for it. ``on_refine(result)`` receives each
     refine's :class:`BAResult` (tensors on the device)."""
-    fn = make_process_frame(cfg, K, device)
+    process = make_process_frame(cfg, K, device)
+
+    def fn(state, image, gen, j):
+        if torch.is_tensor(gen):
+            return process(state, image, None, pnp_sampler=lambda valid: gen[j])
+        return process(state, image, gen)
 
     def stack(outs):
         return (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
@@ -399,7 +406,7 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
         def chunk_fn(state, frames, gen, frame_idx=None):
             outs = []
             for j in range(frames.shape[0]):
-                state, res = fn(state, frames[j], gen)
+                state, res = fn(state, frames[j], gen, j)
                 outs.append(res)
             return state, stack(outs)
 
@@ -414,7 +421,7 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
             frame_idx = int(state.frame_idx)
         outs = []
         for j in range(frames.shape[0]):
-            state, res = fn(state, frames[j], gen)
+            state, res = fn(state, frames[j], gen, j)
             outs.append(res)
             if (frame_idx + j + 1) % every == 0:
                 state, window, ba_res = ba_step(state, window)

@@ -153,11 +153,11 @@ def assemble_blocks(R, t, X, obs, mask, huber, lam):
     S_corr = (UH_m @ U_m.T).reshape(W, 6, W, 6)             # "wkij,kjl,vkml->wivm"
     b_corr = (UH_m @ bl.reshape(K * 3)).reshape(W, 6)       # "wkij,kjl,kl->wi"
 
-    # the two index tensors are split by a slice, so the broadcast axis leads: the
-    # value is (W, 6, 6) and lands on the block diagonal
-    ar = torch.arange(W, device=r.device)
-    Hpp_full = torch.zeros((W, 6, W, 6), **f)
-    Hpp_full[ar, :, ar, :] = Hpp + lam * torch.eye(6, **f)
+    # the (W, 6, 6) blocks on the block diagonal, zeros elsewhere; a select, not a write
+    # into a fresh buffer, which torch.func.vmap refuses
+    diag = torch.eye(W, dtype=torch.bool, device=r.device)[:, None, :, None]
+    D = (Hpp + lam * torch.eye(6, **f))[:, :, None, :]
+    Hpp_full = torch.where(diag, D, torch.zeros((), **f))
     S = Hpp_full - S_corr
     rhs = bp - b_corr
     return S, rhs, U, Hll_inv, bl, cost

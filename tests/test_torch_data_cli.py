@@ -45,6 +45,30 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_native_library(tmp_path_factory):
+    """Both packages' bindings load a native library that this module builds in a
+    directory of its own, so nothing here depends on the shared ``native/``: another
+    test process may be linking ``native/liblcvo_native.so`` in place at any moment,
+    and the JAX package's binding remembers a load that failed for good."""
+    work = tmp_path_factory.mktemp("native_lib") / "native"
+    work.mkdir()
+    for name in ("Makefile", "png_loader.cpp"):
+        (work / name).write_bytes(open(os.path.join(ROOT, "native", name), "rb").read())
+    lib_path = str(work / "liblcvo_native.so")
+    fields = {native_loader: ("_LIB_PATH", "_lib", "_tried", "_error"),
+              jnative: ("_LIB_PATH", "_lib", "_tried")}
+    saved = {(m, f): getattr(m, f) for m, names in fields.items() for f in names}
+    native_loader._LIB_PATH = lib_path
+    native_loader._build()    # a failure is built again, and kept, at the first load
+    for m in fields:
+        m._LIB_PATH, m._lib, m._tried = lib_path, None, False
+    native_loader._error = None
+    yield
+    for (m, f), v in saved.items():
+        setattr(m, f, v)
+
+
 def _tool(name):
     spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
@@ -501,12 +525,14 @@ def test_dataset_tool_writes_all_layouts_and_resumes(tmp_path):
 
 
 def test_new_modules_and_tools_import_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter: the new modules, the two tools and chip_smoke.py."""
+    """In a fresh interpreter: the host-layer modules, the multi-stream modules, the
+    tools and chip_smoke.py."""
     code = textwrap.dedent("""
         import importlib.util, os, sys
         import lcvo_tpu_torch.cli.run, lcvo_tpu_torch.data.datasets
         import lcvo_tpu_torch.data.native_loader, lcvo_tpu_torch.data.render
         import lcvo_tpu_torch.metrics, lcvo_tpu_torch.viz, lcvo_tpu_torch.utils.profiling
+        import lcvo_tpu_torch.parallel.streams, lcvo_tpu_torch.parallel.mesh
         for path in ("tools/port_make_replay_dataset.py", "tools/port_run_replay.py",
                      "tools/port_probe_host.py", "chip_smoke.py"):
             spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)

@@ -11,12 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from lcvo_tpu.ops import klt as jklt
 from lcvo_tpu.ops.klt_pallas import extract_blocks_pallas
 from lcvo_tpu_torch import kernels
 from lcvo_tpu_torch.ops import klt as tklt
-from lcvo_tpu_torch.ops.klt_extract import extract_blocks, extract_blocks_plain, slab_plan
+from lcvo_tpu_torch.ops.klt_extract import (extract_blocks, extract_blocks_layered,
+                                           extract_blocks_layered_plain, extract_blocks_plain,
+                                           slab_plan)
 
 
 def _image(rng, H, W):
@@ -94,7 +97,7 @@ def test_cpu_wrapper_runs_plain_version_without_counting(rng, dtype):
     assert b.dtype == dtype and b.shape == (13, S, S)
     assert torch.equal(b, bp) and torch.equal(o, op)
     assert tklt._extract_blocks(img, c, S)[0].equal(bp)
-    assert kernels.LAUNCHES == {"extract_blocks": 0}
+    assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0}
 
 
 def test_nan_and_inf_centers_clamp_like_the_kernel():
@@ -215,7 +218,7 @@ def test_cpu_wrapper_with_pad_runs_plain_version_without_counting(rng, dtype, pa
     b, o = extract_blocks(img, c, S, pad=pad)
     bp, op = extract_blocks_plain(img, c, S, pad=pad)
     assert torch.equal(b, bp) and torch.equal(o, op)
-    assert kernels.LAUNCHES == {"extract_blocks": 0}
+    assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0}
 
 
 @pytest.mark.parametrize("S,pad,exc", [(5, -1, ValueError), (5, 1.5, ValueError),
@@ -248,3 +251,105 @@ def test_slab_plan_aligned_slabs_cover_every_track_once(N, S, itemsize):
     covered = [n for g in range(n_groups) for n in range(g * G, (g + 1) * G)]
     covered += list(range(n_groups * G, N))
     assert covered == list(range(N))
+
+
+# ---- the layered entry and the batching rule (``torch.func.vmap``) ----
+
+def _layered_case(rng, L, H, W, S, N):
+    img = np.stack([_image(rng, H, W) for _ in range(L)])
+    c = _centers_pad_cases(rng, N, H, W, S)
+    layer = rng.integers(0, L, size=N).astype(np.int32)
+    layer[:L] = np.arange(L)                  # every layer used
+    return torch.from_numpy(img), torch.from_numpy(c), torch.from_numpy(layer)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("H,W,S,pad_y,pad_x,N", [(50, 70, 15, 8, 8, 40), (47, 155, 29, 15, 15, 63),
+                                                 (61, 97, 21, 11, 0, 40), (40, 30, 29, 0, 15, 33),
+                                                 (29, 155, 29, 3, 17, 37)])
+def test_layered_equals_the_per_layer_call(rng, dtype, L, H, W, S, pad_y, pad_x, N):
+    """Block n of the layered call is the 2-D call on layer ``layer[n]``: with one pad,
+    ``extract_blocks`` itself; with a pad per axis, the extraction from the layer
+    edge-padded by (pad_y, pad_x) at ``c + (pad_x, pad_y)`` with the pads taken off the
+    origins. Mixed layers, centers past every edge, NaN and infinite centers; exact. On
+    CPU tensors the wrapper is the plain version and counts no launch."""
+    img, c, layer = _layered_case(rng, L, H, W, S, N)
+    img = img.to(dtype)
+    kernels.reset_launches()
+    b, o = extract_blocks_layered(img, c, layer, S, pad_y=pad_y, pad_x=pad_x)
+    bp, op = extract_blocks_layered_plain(img, c, layer, S, pad_y, pad_x)
+    assert torch.equal(b, bp) and torch.equal(o, op)
+    assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0}
+    assert b.shape == (N, S, S) and b.dtype == dtype and o.dtype == torch.float32
+    shift = torch.tensor([float(pad_x), float(pad_y)])
+    for n in range(N):
+        one = img[int(layer[n])]
+        if pad_y == pad_x:
+            want_b, want_o = extract_blocks(one, c[n: n + 1], S, pad=pad_y)
+        else:
+            padded = torch.nn.functional.pad(one[None, None], (pad_x, pad_x, pad_y, pad_y),
+                                             mode="replicate")[0, 0]
+            want_b, want_o = extract_blocks_plain(padded, c[n: n + 1] + shift, S)
+            want_o = want_o - shift
+        assert torch.equal(b[n: n + 1], want_b) and torch.equal(o[n: n + 1], want_o), n
+
+
+class _OpCalls(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("batched", ["both", "centers", "image"])
+@pytest.mark.parametrize("pad", [0, 15])
+def test_vmap_of_extract_blocks_is_one_call_and_equals_the_loop(rng, batched, pad):
+    """``torch.func.vmap`` of ``extract_blocks`` over B = 4 images and/or sets of
+    centers equals the per-image loop, exactly, and reaches the backend as ONE call of
+    the layered entry (layer b for the centers of call b; an image that is not batched
+    is broadcast to the B layers)."""
+    B, H, W, S, N = 4, 47, 155, 29, 37
+    imgs = torch.from_numpy(np.stack([_image(rng, H, W) for _ in range(B)]))
+    cs = torch.from_numpy(np.stack([_centers_pad_cases(rng, N, H, W, S) for _ in range(B)]))
+    img_dim = None if batched == "centers" else 0
+    c_dim = None if batched == "image" else 0
+    args = (imgs if img_dim == 0 else imgs[0], cs if c_dim == 0 else cs[0])
+    with _OpCalls() as calls:
+        vb, vo = torch.func.vmap(lambda i, c: extract_blocks(i, c, S, pad=pad),
+                                 in_dims=(img_dim, c_dim))(*args)
+    ops = [n for n in calls.names if n.startswith("lcvo.")]
+    assert ops == ["lcvo.extract_blocks_layered"]
+    for k in range(B):
+        b, o = extract_blocks(imgs[k] if img_dim == 0 else imgs[0],
+                              cs[k] if c_dim == 0 else cs[0], S, pad=pad)
+        assert torch.equal(vb[k], b) and torch.equal(vo[k], o), k
+
+
+def test_layered_clamps_a_layer_outside_the_stack(rng):
+    """A layer index below 0 reads layer 0 and one of L or more reads layer L-1, as the
+    kernel clamps it (no wrap-around, no error); exact."""
+    L, H, W, S, N = 3, 40, 30, 15, 24
+    img, c, _ = _layered_case(rng, L, H, W, S, N)
+    layer = torch.tensor([-1, -7, 0, 1, L - 1, L, L + 5, -2 ** 31] * 3, dtype=torch.int32)
+    b, o = extract_blocks_layered(img, c, layer, S, pad_y=8, pad_x=8)
+    want = extract_blocks_layered(img, c, layer.clamp(0, L - 1), S, pad_y=8, pad_x=8)
+    assert torch.equal(b, want[0]) and torch.equal(o, want[1])
+    for n, li in enumerate((0, 0, 0, 1, L - 1, L - 1, L - 1, 0) * 3):
+        wb, wo = extract_blocks(img[li], c[n: n + 1], S, pad=8)
+        assert torch.equal(b[n: n + 1], wb) and torch.equal(o[n: n + 1], wo), n
+
+
+def test_layered_rejects_bad_arguments():
+    img, c = torch.zeros(2, 20, 30), torch.zeros(4, 2)
+    with pytest.raises(ValueError):
+        extract_blocks_layered(img[0], c, torch.zeros(4, dtype=torch.int32), 5)
+    with pytest.raises(ValueError):
+        extract_blocks_layered(img, c, torch.zeros(4, dtype=torch.int64), 5)
+    with pytest.raises(ValueError):
+        extract_blocks_layered(img, c, torch.zeros(3, dtype=torch.int32), 5)
+    with pytest.raises(ValueError):
+        extract_blocks_layered(img, c, torch.zeros(4, dtype=torch.int32), 31, pad_y=6)
