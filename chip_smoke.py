@@ -100,7 +100,19 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    same S = 4 run with stream 0 given stream 1's frames (the control) exceeds it. Prints
    aggregate frames/s over the chunks after the first, launches per batched step and,
    with ``--profile``, device ops per frame per stream at S = 8.
-11. Output: the kernel table as one JSON line (the 2-D entry and the layered entry),
+11. Processes (``[dist]``): ``torch.distributed``'s NCCL probe (available, version, device
+   count); then a world of one NCCL rank in this process (``parallel.mesh.init_distributed``,
+   a ``DeviceMesh`` of one): ``solve.ba.sharded.ba_solve_sharded`` on a seeded window of
+   ``DIST_W`` keyframes and ``DIST_K`` landmarks equal to ``ba_solve`` exactly, with no
+   host sync, its time beside ``ba_solve``'s; ``knn_match_ratio_sharded`` at
+   ``DIST_MATCH`` equal to ``knn_match_ratio`` exactly; the streams chunk step of
+   ``[streams]`` at S = 8 through the mesh equal to its run without one exactly, its
+   layered launches counted (``launches_by_path.streams_mesh_S8``). Then ``DIST_RANKS``
+   gloo ranks on the one card, each a process of its own with CUDA tensors: the sharded BA
+   within the ``ba_solve`` line, the matcher exact, and ``tools/port_dryrun_multirank.py
+   --device cuda --backend gloo``. NCCL holds one rank per card, so the two ranks check
+   the cross-rank arithmetic and give no speed figure.
+12. Output: the kernel table as one JSON line (the 2-D entry and the layered entry),
    the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
@@ -111,6 +123,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -163,13 +176,17 @@ RENDER_MAX_DIFF_SHARE = 0.01   # share of pixels that differ at all
 REPLAY_FRAMES = 400
 REPLAY_RESUME_FRAMES = 200     # the interrupted run: one checkpoint, at frame 7 + 128
 REPLAY_CKPT_EVERY = 128
-# ATE bound of the replay, set as the others: 8x the 0.1744 m that the JAX package's CLI
-# reaches on the CPU on the same 400 frames (this tool's files, rendered on the CPU: the
-# card's differ by one grey level on a few pixels in a million) with the same YAML at
-# seed 1; the command is in PERF.md. The port reaches 0.2824 m on the card and 0.2774 m
-# on the CPU, 1.6x the JAX package's on either; the phase prints the ratio.
-REPLAY_JAX_CPU_ATE_M = 0.1744
-REPLAY_ATE_BOUND_M = 1.395   # 8 x REPLAY_JAX_CPU_ATE_M
+# ATE bound of the replay. One seed is one draw of RANSAC on this turn: over seeds 1-6 on
+# the same 400 frames rendered on the CPU (tools/port_replay_seeds.py; the command is in
+# PERF.md) the JAX package's CLI on the CPU reads 0.1744-1.2314 m (median 0.2589) and the
+# port's on the H100 0.1521-1.1036 m (median 0.3439), each with one weak draw above 1 m; at
+# seed 1 the port reads 0.1521 m on those files and 0.2824 m on this phase's files rendered
+# on the card, which differ by one grey level on a few pixels in a million. The bound is
+# twice the port's median: above every draw of either package but the two weak ones, and
+# under 4x this phase's reading.
+REPLAY_JAX_CPU_ATE_M = 0.1744      # the JAX CLI at seed 1, on the CPU-rendered files
+REPLAY_PORT_MEDIAN_ATE_M = 0.3439  # the port's median over seeds 1-6 on those files
+REPLAY_ATE_BOUND_M = 0.688         # 2 x REPLAY_PORT_MEDIAN_ATE_M
 # 400 frames of 1240x376 uint8 are 186 MB; the ingest stages a chunk and a look-ahead
 # (2 x 16 frames, 15 MB) and the prefetch queue. From the end of the second chunk (when
 # every library a step loads lazily is loaded) to the end of the replay 361 more frames
@@ -186,6 +203,19 @@ REPLAY_RSS_GROWTH_MB = 55.0
 STREAMS = (1, 2, 4, 8)
 STREAMS_CHUNKS = 4
 STREAMS_S4_VS_S1_TOL = 1e-2
+# The [dist] phase: the landmark-sharded BA at the window's shape (turn_robust's window of
+# 10 keyframes, its 1024-track capacity), the row-sharded matcher at the reference path's
+# shape, and the streams chunk step at S = 8 through a mesh. One card holds one NCCL
+# rank, so the phase runs a world of one rank on NCCL in this process (where the sharded
+# functions must equal the unsharded ones exactly), then two gloo ranks on the same card,
+# each a process of its own, as a check of the cross-rank arithmetic: the BA is held to
+# the ba_solve line of ROADMAP section C (cost0 1e-5 relative, final cost 5%, R 2e-4,
+# t 2e-3, X 2e-2), the matcher is exact. It gives no speed or scaling figure.
+DIST_W, DIST_K, DIST_FX = 10, 1024, 500.0
+DIST_MATCH = (1024, 1024, 128)
+DIST_RANKS = 2
+DIST_RANK_TIMEOUT_S = 180
+BA_LINE = {"cost0_rel": 1e-5, "cost_rel": 0.05, "R": 2e-4, "t": 2e-3, "X": 2e-2}
 
 
 def _say(msg: str) -> None:
@@ -935,6 +965,7 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
         "frames_on_disk": N, "summary": summary, "plots": plots, "card": smi,
         "ate_bound_m": REPLAY_ATE_BOUND_M, "jax_cpu_ate_m": REPLAY_JAX_CPU_ATE_M,
         "ate_over_jax_cpu": summary["ate_rmse_m"] / REPLAY_JAX_CPU_ATE_M,
+        "ate_over_port_seed_median": summary["ate_rmse_m"] / REPLAY_PORT_MEDIAN_ATE_M,
         "launches": launches, "launches_formula": want_launches,
         "decoder": "native" if decoded == {"decoded": N + 1, "declined": 0} else f"mixed: {decoded}",
         "native_decoded": decoded["decoded"], "native_declined": decoded["declined"],
@@ -1228,7 +1259,7 @@ def _stream_poses(R, t):
     return -np.einsum("...ji,...j->...i", R, t)
 
 
-def streams_phase(cfg, seq, frames, profile_dir: str | None) -> dict:
+def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict]:
     """S = 1, 2, 4, 8 streams of ``cfg`` through the batched chunk step, each stream
     bootstrapped by the single-stream bootstrap on the same frames (so every stream
     starts from the bootstrap the single-stream path of this file checks; the streams
@@ -1236,7 +1267,9 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> dict:
     the first, extraction launches per batched step, each stream's ATE and pose_ok; at
     S = 8 (the largest) a whole chunk with keyframe steps under the sync detector and,
     with ``--profile``, device ops per frame per stream. Then stream 0 at S = 4 against
-    the S = 1 run on the first chunk with the same injected samples."""
+    the S = 1 run on the first chunk with the same injected samples. Returns the phase's
+    line and, for the ``[dist]`` phase, the bootstrapped streams, the frames and the
+    poses of the S = 8 run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1285,6 +1318,9 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> dict:
                                   _stream_poses(np.concatenate(Rs, 1), np.concatenate(ts, 1))], 1)
         ok_rate = np.concatenate([np.ones((S, 1), bool), np.concatenate(oks, 1)], 1).mean(1)
         ates = [float(ate_rmse(centers[s], gt)) for s in range(S)]
+        if S == S_max:
+            run_max = {"vos": vos, "batch": batch, "R": np.concatenate(Rs, 1),
+                       "t": np.concatenate(ts, 1), "pose_ok": np.concatenate(oks, 1)}
         row = {"aggregate_fps": S * CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
                "fps_per_stream": CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
                "launches": launches["extract_blocks_layered"],
@@ -1377,6 +1413,272 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> dict:
                              f"the limit {STREAMS_S4_VS_S1_TOL}: the check cannot tell them apart")
     out["launches_per_batched_step"] = launches_per_step[S_max]
     out["launches"] = sum(r["launches"] for r in out["by_streams"].values())
+    return out, run_max
+
+
+def _ba_scene(W: int, K: int, seed: int = 0) -> dict:
+    """A seeded window: W cameras along +x looking at K points, 0.3 px of noise, the
+    free poses and every landmark moved (``tests/multiprocess_worker.py``'s scene)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-4, -2, 6], [4, 2, 14], (K, 3))
+    Rs, ts, obs = [], [], []
+    for w in range(W):
+        a = 0.02 * w
+        Rw = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        t = -Rw @ np.array([0.4 * w, 0.0, 0.0])
+        p = (Rw @ X.T).T + t
+        Rs.append(Rw)
+        ts.append(t)
+        obs.append(p[:, :2] / p[:, 2:3] + rng.normal(0, 0.3 / DIST_FX, (K, 2)))
+    t = np.stack(ts).astype(np.float32)
+    tp = t + rng.normal(0, 0.01, t.shape).astype(np.float32)
+    tp[:2] = t[:2]
+    return {"R": np.stack(Rs).astype(np.float32), "t": tp,
+            "X": (X + rng.normal(0, 0.05, X.shape)).astype(np.float32),
+            "obs": np.stack(obs).astype(np.float32), "mask": np.ones((W, K), bool)}
+
+
+def _match_inputs(seed: int = 0) -> dict:
+    """Nq x Nt x D descriptors with a quarter of the queries planted among the targets."""
+    rng = np.random.default_rng(seed)
+    nq, nt, d = DIST_MATCH
+    dq = rng.normal(size=(nq, d)).astype(np.float32)
+    dt = rng.normal(size=(nt, d)).astype(np.float32)
+    dt[: nq // 4] = dq[: nq // 4] + rng.normal(size=(nq // 4, d)).astype(np.float32) * 1e-3
+    return {"dq": dq, "vq": rng.random(nq) < 0.9, "dt": dt, "vt": rng.random(nt) < 0.9}
+
+
+def _ba_kwargs(cfg) -> dict:
+    return {"iters": cfg.ba.gn_iters, "n_fix": 2, "huber": cfg.ba.huber_px / DIST_FX,
+            "lam0": cfg.ba.damping}
+
+
+def _ba_line_errors(got, ref) -> dict:
+    """The ``ba_solve`` line's quantities of ``got`` against ``ref`` (BAResult-like)."""
+    err = {f: float(np.abs(np.asarray(got[f]) - np.asarray(ref[f])).max()) for f in ("R", "t", "X")}
+    err["cost0_rel"] = abs(float(got["cost0"]) - float(ref["cost0"])) / abs(float(ref["cost0"]))
+    err["cost_rel"] = abs(float(got["cost"]) - float(ref["cost"])) / max(abs(float(ref["cost"])), 1e-12)
+    return err
+
+
+def _dist_rank(dev, argv) -> None:
+    """One rank of the [dist] phase's gloo run (``run_ranks`` calls it): the sharded BA
+    and matcher over the world and their unsharded forms on this rank, to ``<out>_rank<r>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from lcvo_tpu_torch.frontend.match import knn_match_ratio, knn_match_ratio_sharded
+    from lcvo_tpu_torch.parallel.mesh import make_mesh
+    from lcvo_tpu_torch.solve.ba.schur import BAProblem, ba_solve
+    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded
+
+    src, out = argv
+    d = np.load(src)
+    mesh = make_mesh(dist.get_world_size(), device_type=dev.type)
+    prob = BAProblem(*(torch.from_numpy(d[k]).to(dev) for k in ("R", "t", "X", "obs", "mask")))
+    kw = {k: d[f"kw_{k}"].item() for k in ("iters", "n_fix", "huber", "lam0")}
+    got = {}
+    for tag, res in (("sharded", ba_solve_sharded(prob, mesh, **kw)), ("one", ba_solve(prob, **kw))):
+        for f in res._fields:
+            got[f"{tag}_{f}"] = getattr(res, f).cpu().numpy()
+    q, vq, t, vt = (torch.from_numpy(d[k]).to(dev) for k in ("dq", "vq", "dt", "vt"))
+    for tag, (idx, ok) in (("sharded", knn_match_ratio_sharded(mesh, q, vq, t, vt)),
+                           ("one", knn_match_ratio(q, vq, t, vt))):
+        got[f"{tag}_idx"], got[f"{tag}_ok"] = idx.cpu().numpy(), ok.cpu().numpy()
+    np.savez(f"{out}_rank{dist.get_rank()}.npz", **got)
+
+
+def _dispatched_ops(fn) -> int:
+    """How many operators ``fn()`` sends to the backend (each a launch or a collective)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _gloo_ranks_check(scene: dict, match: dict, kw: dict) -> dict:
+    """``DIST_RANKS`` gloo ranks on this card, each a process of its own (``_dist_rank``):
+    the sharded BA within the ``ba_solve`` line of each rank's own ``ba_solve`` and the
+    same on every rank, the sharded matcher equal to the unsharded one."""
+    import tempfile
+
+    from lcvo_tpu_torch.parallel.launch import run_ranks
+
+    with tempfile.TemporaryDirectory(prefix="dist_phase_") as work:
+        src = os.path.join(work, "inputs.npz")
+        np.savez(src, **scene, **match, **{f"kw_{k}": np.array(v) for k, v in kw.items()})
+        t0 = time.perf_counter()
+        run_ranks("chip_smoke.py:_dist_rank", DIST_RANKS, [src, os.path.join(work, "r")],
+                  device="cuda", backend="gloo", timeout=DIST_RANK_TIMEOUT_S)
+        ranks = [dict(np.load(os.path.join(work, f"r_rank{r}.npz"))) for r in range(DIST_RANKS)]
+        two = {"backend": "gloo", "world": DIST_RANKS, "tensors": "cuda",
+               "seconds": time.perf_counter() - t0}
+    fields = ("R", "t", "X", "cost0", "cost")
+    err = _ba_line_errors({f: ranks[0][f"sharded_{f}"] for f in fields},
+                          {f: ranks[0][f"one_{f}"] for f in fields})
+    bad = {k: v for k, v in err.items() if not v <= BA_LINE[k]}
+    same = all(np.array_equal(r[f"sharded_{f}"], ranks[0][f"sharded_{f}"]) for r in ranks for f in fields)
+    match_ok = all(np.array_equal(r["sharded_idx"], r["one_idx"]) and np.array_equal(r["sharded_ok"], r["one_ok"])
+                   for r in ranks)
+    two.update({"ba_vs_ba_solve": err, "ba_line": BA_LINE, "ba_same_on_every_rank": same,
+                "match_equal": match_ok})
+    if bad or not same or not match_ok:
+        raise AssertionError(f"[dist] {DIST_RANKS} gloo ranks: {two}")
+    return two
+
+
+def _world_of_one_solvers(mesh, dev, scene: dict, match: dict, kw: dict) -> dict:
+    """At one rank: the sharded BA equal to ``ba_solve`` and the sharded matcher equal to
+    ``knn_match_ratio``, exactly; the BA with no host sync, its time beside ``ba_solve``'s
+    (host clock, in turns) and the operators each dispatches."""
+    import torch
+    import torch.distributed as dist
+
+    from lcvo_tpu_torch.frontend.match import knn_match_ratio, knn_match_ratio_sharded
+    from lcvo_tpu_torch.solve.ba.schur import BAProblem, ba_solve
+    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded
+
+    one = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh_shape": mesh.shape, "group_size": dist.get_world_size(mesh.group("data"))}
+    if one["backend"] != "nccl" or one["group_size"] != 1:
+        raise AssertionError(f"[dist] a world of one on NCCL: {one}")
+    prob = BAProblem(*(torch.from_numpy(scene[k]).to(dev) for k in ("R", "t", "X", "obs", "mask")))
+    solvers = {"one": lambda: ba_solve(prob, **kw), "sharded": lambda: ba_solve_sharded(prob, mesh, **kw)}
+    a, b = solvers["sharded"](), solvers["one"]()
+    differ = [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+    if differ:
+        raise AssertionError(f"[dist] world of one: ba_solve_sharded differs from ba_solve in {differ}")
+    if not float(a.cost) < float(a.cost0):
+        raise AssertionError(f"[dist] the sharded BA did not lower its cost: {float(a.cost0)} -> {float(a.cost)}")
+    syncs = _host_syncs(solvers["sharded"])
+    if syncs:
+        raise AssertionError(f"[dist] ba_solve_sharded waits for the device at {syncs}")
+    times = {"one": [], "sharded": []}
+    for _ in range(3):
+        for tag in ("one", "sharded", "sharded", "one"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                solvers[tag]()
+            torch.cuda.synchronize()
+            times[tag].append((time.perf_counter() - t0) / 5 * 1e3)
+    one.update({"ba": f"W={DIST_W} K={DIST_K} iters={kw['iters']}", "ba_equal_to_ba_solve": True,
+                "ba_cost0": float(a.cost0), "ba_cost": float(a.cost), "ba_host_syncs": 0,
+                "ba_sharded_ms": statistics.median(times["sharded"]),
+                "ba_solve_ms": statistics.median(times["one"]),
+                "ba_sharded_ops": _dispatched_ops(solvers["sharded"]),
+                "ba_solve_ops": _dispatched_ops(solvers["one"])})
+    q, vq, tq, vt = (torch.from_numpy(match[k]).to(dev) for k in ("dq", "vq", "dt", "vt"))
+    (i1, o1), (i2, o2) = knn_match_ratio_sharded(mesh, q, vq, tq, vt), knn_match_ratio(q, vq, tq, vt)
+    if not (torch.equal(i1, i2) and torch.equal(o1, o2)):
+        raise AssertionError("[dist] world of one: knn_match_ratio_sharded differs from knn_match_ratio")
+    one.update({"match": "x".join(map(str, DIST_MATCH)), "match_equal": True,
+                "match_ok": int(o1.sum())})
+    return one
+
+
+def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
+    """At one rank: the streams chunk step through the mesh, from the same carry and seed
+    as the S = 8 run of ``[streams]``, equal to it exactly, with its layered launches."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.parallel import streams as ps
+    from lcvo_tpu_torch.parallel.mesh import shard_batched_state
+
+    vos, batch = run_max["vos"], run_max["batch"]
+    S = len(vos)
+    step = ps.make_multistream_chunk_step(cfg, seq.K, mesh=mesh, device="cuda")
+    carry = shard_batched_state(ps.stack_streams([vo.chunk_carry() for vo in vos]), mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    got = {"R": [], "t": [], "pose_ok": []}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for k in range(STREAMS_CHUNKS):
+        fr = shard_batched_state(batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1), mesh)
+        carry, (R, t, ok, _) = step(carry, fr, gen, frame_idx=k * CHUNK)
+        for name, x in (("R", R), ("t", t), ("pose_ok", ok)):
+            got[name].append(x.cpu().numpy())
+    launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    differ = [n for n in got if not np.array_equal(np.concatenate(got[n], 1), run_max[n])]
+    if differ:
+        raise AssertionError(f"[dist] the streams chunk step through the mesh differs from the "
+                             f"batched chunk step in {differ}")
+    if launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * STREAMS_CHUNKS * CHUNK:
+        raise AssertionError(f"[dist] streams through the mesh launched {launches}")
+    return {"streams": f"S={S} chunks={STREAMS_CHUNKS}x{CHUNK}", "streams_equal_to_batched": True,
+            "streams_layered_launches": launches["extract_blocks_layered"]}
+
+
+def dist_phase(cfg, seq, run_max: dict) -> dict:
+    """``[dist]``: the NCCL probe; a world of one NCCL rank in this process (sharded BA =
+    ``ba_solve`` and sharded matcher = ``knn_match_ratio`` exactly, the BA with no host
+    sync and its time beside ``ba_solve``'s, the streams chunk step through the mesh =
+    the S = 8 run of ``[streams]`` exactly, with its layered launches); then
+    ``DIST_RANKS`` gloo ranks on this card (BA within the ``ba_solve`` line, matcher
+    exact) and ``tools/port_dryrun_multirank.py`` on as many, which runs beside the
+    untimed part. The group is destroyed at the end, and no process it started outlives it."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from lcvo_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    probe = {"nccl_available": dist.is_nccl_available(),
+             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+             "gloo_available": dist.is_gloo_available(), "device_count": torch.cuda.device_count()}
+    _say("[dist] " + json.dumps(probe))
+    out = {"probe": probe}
+    scene, match, kw = _ba_scene(DIST_W, DIST_K), _match_inputs(), _ba_kwargs(cfg)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dry = None
+    try:
+        dev = init_distributed(f"localhost:{port}", num_processes=1, process_id=0)
+        try:
+            mesh = make_mesh(1)
+            one = _world_of_one_solvers(mesh, dev, scene, match, kw)
+            t_dry = time.perf_counter()
+            dry = subprocess.Popen(
+                [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                              "port_dryrun_multirank.py"),
+                 "--nproc", str(DIST_RANKS), "--device", "cuda", "--backend", "gloo",
+                 "--timeout", str(DIST_RANK_TIMEOUT_S)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+            one.update(_world_of_one_streams(cfg, seq, run_max, mesh, dev))
+        finally:
+            dist.destroy_process_group()
+        out["world_one_nccl"] = one
+        out["streams_mesh_launches"] = one["streams_layered_launches"]
+        _say("[dist] world of one, nccl: " + json.dumps(one))
+        two = _gloo_ranks_check(scene, match, kw)
+        dry_out, _ = dry.communicate(timeout=DIST_RANK_TIMEOUT_S + 30)
+    finally:
+        if dry is not None and dry.poll() is None:     # its ranks are in its session
+            os.killpg(dry.pid, signal.SIGKILL)
+            dry.wait()
+    if dry.returncode or f"dryrun_multirank({DIST_RANKS}): OK" not in dry_out:
+        raise AssertionError(f"[dist] tools/port_dryrun_multirank.py: rc {dry.returncode}\n"
+                             f"{dry_out[-4000:]}")
+    two["dryrun_multirank"] = "OK"
+    two["dryrun_seconds"] = time.perf_counter() - t_dry
+    out["two_ranks_gloo"] = two
+    out["seconds"] = time.perf_counter() - t_phase
+    two["phase_seconds"] = out["seconds"]
+    _say(f"[dist] {DIST_RANKS} gloo ranks on one card (a check, no speed figure): " + json.dumps(two))
     return out
 
 
@@ -1457,9 +1759,11 @@ def main() -> int:
     row["launches"] = sum(by_path.values())
     row["launches_by_path"] = by_path
     lrow = layered_kernel_phase(turn_cfg)
-    st = streams_phase(turn_cfg, seq, frames, args.profile)
-    lrow["launches"] = st["launches"]
+    st, run_max = streams_phase(turn_cfg, seq, frames, args.profile)
+    dst = dist_phase(turn_cfg, seq, run_max)
+    lrow["launches"] = st["launches"] + dst["streams_mesh_launches"]
     lrow["launches_by_path"] = {f"streams_S{S}": r["launches"] for S, r in st["by_streams"].items()}
+    lrow["launches_by_path"][f"streams_mesh_S{max(STREAMS)}"] = dst["streams_mesh_launches"]
     lrow["launches_per_batched_step"] = st["launches_per_batched_step"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "sift_ms",

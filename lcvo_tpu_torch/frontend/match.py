@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from lcvo_tpu_torch.parallel.mesh import all_gather
+
 
 def knn_match_ratio(desc_q: torch.Tensor, valid_q: torch.Tensor, desc_t: torch.Tensor,
                     valid_t: torch.Tensor, ratio: float = 0.8):
@@ -44,3 +46,22 @@ def mutual_match(desc_a: torch.Tensor, valid_a: torch.Tensor, desc_b: torch.Tens
     here = torch.arange(desc_a.shape[0], device=desc_a.device)
     ok = ok_ab & ok_ba[idx_ab] & (back == here)
     return idx_ab, ok
+
+
+def knn_match_ratio_sharded(mesh, desc_q: torch.Tensor, valid_q: torch.Tensor,
+                            desc_t: torch.Tensor, valid_t: torch.Tensor,
+                            ratio: float = 0.8, axis: str = "data"):
+    """Row-sharded matcher over the ranks of ``mesh`` along ``axis``: every rank passes
+    all the queries and targets, matches its Nq/n query rows against all the targets
+    with :func:`knn_match_ratio`, and the rows are gathered back, in order, on every
+    rank. The targets are whole on every rank, so nothing is reduced. Nq must divide
+    into the axis size. Returns the same (idx, ok) as :func:`knn_match_ratio`."""
+    n = mesh.shape[axis]
+    nq = desc_q.shape[0]
+    if nq % n:
+        raise ValueError(f"query count {nq} does not divide into the {n} ranks of mesh "
+                         f"axis {axis!r}")
+    m = nq // n
+    rows = slice(mesh.index(axis) * m, (mesh.index(axis) + 1) * m)
+    idx, ok = knn_match_ratio(desc_q[rows], valid_q[rows], desc_t, valid_t, ratio)
+    return all_gather(idx, mesh, axis), all_gather(ok, mesh, axis)

@@ -1,1 +1,2 @@
-"""Stream-parallel execution: many VO streams in one set of launches."""
+"""Scale-out: many VO streams in one set of launches (``streams``), and one process per
+device on ``torch.distributed`` (``mesh``, ``launch``)."""

@@ -1,89 +1,130 @@
-"""Device mesh and the placement of stream-batched state (port of
-``lcvo_tpu/parallel/mesh.py``).
+"""Process groups, the device mesh and this rank's part of a stream-batched state
+(port of ``lcvo_tpu/parallel/mesh.py``).
 
-The JAX package shards the stream dimension of a batched state over a
-``jax.sharding.Mesh``. Here a :class:`Mesh` is a small array of ``torch.device`` objects
-with named axes, and "sharding" over an axis means: the stream dimension is split in equal
-parts, part ``k`` lives on the mesh's ``k``-th device along that axis, and each part
-runs as one vmapped sub-batch there (:mod:`lcvo_tpu_torch.parallel.streams`). A leaf
-whose leading dimension does not divide into the parts is replicated, as at
-``lcvo_tpu/parallel/mesh.py:76-79``. Entries along the other axes would hold replicas of
-the same part and are not used.
+The JAX package runs one program over a ``jax.sharding.Mesh`` of devices and lets XLA
+place the shards. Here each device has a process of its own (a rank of
+``torch.distributed``), and every rank runs the same program on its own part of the
+data (SPMD):
 
-On one H100 the mesh has one device and nothing is split. On the CPU a mesh may hold
-several entries of the one CPU device, so the split-and-merge code runs without a
-cluster: the counterpart of the JAX package's virtual 8-device CPU mesh. Multi-process
-bring-up (``init_distributed``) is not part of this module yet.
+- :func:`init_distributed` joins the process group (the counterpart of
+  ``jax.distributed.initialize``) and sets the rank's CUDA device;
+- a :class:`Mesh` is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
+  the world with named axes, one process group per axis;
+- :func:`shard_batched_state` gives this rank its part of a batched state (the leading
+  stream dim cut in equal parts along an axis), :func:`gather_batched_state` puts the
+  parts back together on every rank, and :func:`psum` / :func:`all_gather` are the
+  collectives the sharded solvers reduce and gather with (``lax.psum`` and the
+  ``out_specs`` of ``shard_map`` in the JAX package).
 
-The parts run one after another from one host thread (``streams._Parts.run``). That is a
-placeholder: on a launch-bound step, several CUDA devices driven from one thread
-multiply the host's launches instead of spreading them. The ``torch.distributed`` slice
-(one process per device) replaces it; it replaces this loop rather than running beside it.
+A mesh needs a process group, so one process on one H100 is a world of one rank (NCCL
+holds one rank per device). On the CPU the tests start several ranks on gloo.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import datetime
+import os
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
+
+from lcvo_tpu_torch.core.state import resolve_device
+
+# how long a rank waits for the others at the rendezvous and in a collective
+TIMEOUT_S = 300
+
+
+def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None, backend: str | None = None,
+                     device="cuda"):
+    """Join the process group of ``num_processes`` ranks as rank ``process_id``; a no-op
+    returning None when ``num_processes`` is None.
+
+    ``coordinator`` is ``host:port`` of rank 0's store (a URL such as ``file:///path``
+    or ``tcp://host:port`` is used as it is; None reads ``MASTER_ADDR``/``MASTER_PORT``).
+    ``backend`` is ``nccl`` for CUDA and ``gloo`` for the CPU unless named; gloo also
+    takes CUDA tensors. ``device`` is the device type the rank computes on; a CUDA rank
+    runs on ``cuda:{LOCAL_RANK}``, or ``cuda:{rank % device_count}`` without that
+    variable, and that device is made current. Returns the rank's device."""
+    if num_processes is None:
+        return None
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("backend 'nccl' was asked for and torch.distributed.is_nccl_available() "
+                           "is False in this build of PyTorch; name backend='gloo' to use gloo")
+    if coordinator is None:
+        init_method = "env://"
+    elif "://" in coordinator:
+        init_method = coordinator
+    else:
+        init_method = f"tcp://{coordinator}"
+    dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
+                            rank=-1 if process_id is None else process_id,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    if dev.type != "cuda":
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local is not None else dist.get_rank() % torch.cuda.device_count()
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 class Mesh:
-    """Devices laid out as an array with one name per axis."""
+    """A ``DeviceMesh`` over the world's ranks with named axes; ``shape`` is the dict of
+    axis name to size that the JAX package's ``Mesh.shape`` gives."""
 
-    def __init__(self, devices, axis_names: tuple):
-        arr = np.empty(np.shape(devices), dtype=object)
-        for i, d in np.ndenumerate(np.asarray(devices, dtype=object)):
-            arr[i] = torch.device(d)
-        if arr.ndim != len(axis_names):
-            raise ValueError(f"a mesh of shape {arr.shape} needs {arr.ndim} axis names, "
-                             f"got {tuple(axis_names)}")
-        self.devices = arr
-        self.axis_names = tuple(axis_names)
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
 
     @property
     def shape(self) -> dict:
         """Axis name -> size."""
-        return dict(zip(self.axis_names, self.devices.shape))
+        return dict(zip(self.axis_names, self.device_mesh.shape))
 
-    def devices_along(self, axis: str) -> list:
-        """The devices of the entries along ``axis``, at index 0 of the other axes."""
-        k = self.axis_names.index(axis)
-        idx = [0] * self.devices.ndim
-        out = []
-        for i in range(self.devices.shape[k]):
-            idx[k] = i
-            out.append(self.devices[tuple(idx)])
-        return out
+    def group(self, axis: str):
+        """The process group of the ranks along ``axis`` that share this rank's other
+        coordinates."""
+        return self.device_mesh.get_group(axis)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
 
 
 def make_mesh(n_devices: int | None = None, axis_names: tuple = ("data",),
               shape: tuple | None = None, device_type: str = "cuda") -> Mesh:
-    """A mesh over the first ``n_devices`` local devices of ``device_type`` (all of them
-    when None), laid out as ``shape`` (all on the first axis when None). The CPU is one
-    device: a CPU mesh holds ``n_devices`` entries of it (one when None)."""
-    if device_type == "cpu":
-        devs = [torch.device("cpu")] * (n_devices or 1)
-    elif device_type == "cuda":
-        count = torch.cuda.device_count()
-        n = n_devices or count
-        if not 1 <= n <= count:
-            raise RuntimeError(f"a mesh of {n} CUDA devices, and this machine has {count}")
-        devs = [torch.device("cuda", i) for i in range(n)]
-    else:
-        raise ValueError(f"device_type must be 'cuda' or 'cpu', got {device_type!r}")
+    """A mesh over the ``n_devices`` ranks of the world (all of them when None), laid
+    out as ``shape`` (all on the first axis when None). It covers the whole world:
+    raises when no process group is initialised or when the world size is not the
+    mesh's size."""
+    if not (dist.is_available() and dist.is_initialized()):
+        n = n_devices if shape is None else int(np.prod(shape))
+        raise RuntimeError(f"a mesh of {n} ranks needs a process group, and none is "
+                           f"initialised (world size 0): call init_distributed first")
+    world = dist.get_world_size()
+    n = n_devices or world
     if shape is None:
-        shape = (len(devs),) + (1,) * (len(axis_names) - 1)
-    arr = np.empty(len(devs), dtype=object)
-    arr[:] = devs
-    return Mesh(arr.reshape(shape), axis_names)
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    shape = tuple(int(s) for s in shape)
+    if int(np.prod(shape)) != n or n != world:
+        raise RuntimeError(f"a mesh of {int(np.prod(shape))} ranks (shape {shape}, "
+                           f"n_devices {n_devices}) over a world of {world} ranks")
+    if len(shape) != len(axis_names):
+        raise ValueError(f"a mesh of shape {shape} needs {len(shape)} axis names, "
+                         f"got {tuple(axis_names)}")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=tuple(axis_names)))
 
 
 def mesh_from_config(cfg, device_type: str = "cuda") -> Mesh:
-    """Mesh from ``cfg.runtime``: ``mesh_shape`` (empty = all local devices on the
-    first axis) laid out over ``mesh_axes``."""
+    """Mesh from ``cfg.runtime``: ``mesh_shape`` (empty = all ranks on the first axis)
+    laid out over ``mesh_axes``."""
     rt = cfg.runtime
     shape = tuple(rt.mesh_shape) or None
     n = int(np.prod(shape)) if shape else None
@@ -91,64 +132,45 @@ def mesh_from_config(cfg, device_type: str = "cuda") -> Mesh:
                      device_type=device_type)
 
 
-class Sharding(NamedTuple):
-    """Where the parts of a tensor go: one part per device in ``devices``; with
-    ``split`` the leading (stream) dim is cut into equal parts, without it every part
-    is the whole tensor."""
+def _splits(x, n: int) -> bool:
+    return x.dim() >= 1 and x.shape[0] > 0 and x.shape[0] % n == 0
 
-    devices: tuple
-    split: bool
 
-    def place(self, x: torch.Tensor) -> list:
-        n = len(self.devices)
-        if not self.split:
-            return [x.to(d) for d in self.devices]
-        if x.dim() < 1 or x.shape[0] % n:
-            raise ValueError(f"a leading dim of {tuple(x.shape)[:1]} does not split in {n}")
+def shard_batched_state(state_pytree, mesh: Mesh, axis: str = "data"):
+    """This rank's part of a batched (leading stream dim) pytree that every rank holds
+    whole: the leading dim cut in ``mesh.shape[axis]`` equal parts, part
+    ``mesh.index(axis)``; a leaf whose leading dim does not divide (or is 0) whole, as
+    the JAX package replicates it."""
+    n, k = mesh.shape[axis], mesh.index(axis)
+
+    def part(x):
+        if x is None or not _splits(x, n):
+            return x
         m = x.shape[0] // n
-        return [x[k * m:(k + 1) * m].to(d) for k, d in enumerate(self.devices)]
+        return x[k * m:(k + 1) * m]
+
+    return tree_map(part, state_pytree)
 
 
-def stream_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
-    """Sharding for tensors whose leading dim is the stream/batch dim."""
-    return Sharding(tuple(mesh.devices_along(axis)), True)
+def psum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis``, on every one of them
+    (``lax.psum``). ``x`` is left as it is."""
+    out = x.clone()
+    dist.all_reduce(out, group=mesh.group(axis))
+    return out
 
 
-def replicated(mesh: Mesh, axis: str = "data") -> Sharding:
-    """The whole tensor on every device along ``axis``."""
-    return Sharding(tuple(mesh.devices_along(axis)), False)
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` concatenated on the leading dim in the order of
+    their coordinates, on every one of them."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts, dim=0)
 
 
-def shard_batched_state(state_pytree, mesh: Mesh, axis: str = "data") -> list:
-    """The parts of a batched (leading stream dim) pytree, one tree per device along
-    ``axis`` of ``mesh``: the leading dim split in equal parts, a leaf whose leading dim
-    does not divide (or is 0) replicated. With one device the one part is the tree on
-    that device."""
-    sh, rep = stream_sharding(mesh, axis), replicated(mesh, axis)
-    n = len(sh.devices)
-
-    def place(x):
-        if x is None:
-            return [None] * n
-        ok = x.dim() >= 1 and x.shape[0] > 0 and x.shape[0] % n == 0
-        return (sh if ok else rep).place(x)
-
-    leaves, spec = tree_flatten(state_pytree)
-    placed = [place(x) for x in leaves]
-    return [tree_unflatten([p[k] for p in placed], spec) for k in range(n)]
-
-
-def gather_batched_state(parts: list, device=None):
-    """The inverse of :func:`shard_batched_state` for a tree whose leaves were all
-    split: the parts concatenated along the stream dim on ``device`` (the first part's
-    when None)."""
-    if len(parts) == 1:
-        return parts[0]
-
-    def cat(*xs):
-        if xs[0] is None:
-            return None
-        dev = device or xs[0].device
-        return torch.cat([x.to(dev) for x in xs], dim=0)
-
-    return tree_map(cat, *parts)
+def gather_batched_state(part, mesh: Mesh, axis: str = "data"):
+    """The inverse of :func:`shard_batched_state` for a tree whose leaves were all split
+    (what a step returns): the parts of the ranks along ``axis`` concatenated along the
+    stream dim, on every one of them."""
+    return tree_map(lambda x: None if x is None else all_gather(x, mesh, axis), part)

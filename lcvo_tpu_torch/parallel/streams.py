@@ -1,5 +1,5 @@
-"""Stream-parallel execution on one card: many independent VO streams, one set of
-launches (port of ``lcvo_tpu/parallel/streams.py``).
+"""Stream-parallel execution: many independent VO streams, one set of launches per
+device (port of ``lcvo_tpu/parallel/streams.py``).
 
 The reference is sequential over one camera stream, so the scale-out axis is across
 streams: sequence replays, multi-camera rigs, benchmark sweeps. The JAX package
@@ -35,22 +35,22 @@ Decisions, against the JAX package's batched step:
 - As in the JAX package's batched chunk step there is no re-bootstrap inside: a
   collapsed stream's ``health`` is the caller's to read.
 - Nothing reads back to the host inside a batched step or chunk.
-- With a mesh (:mod:`lcvo_tpu_torch.parallel.mesh`) the stream dim is split in equal
-  parts over its devices along ``axis``, one vmapped sub-batch per device, and the
-  outputs are gathered on the device of the input. On one H100 there is one part. The
-  parts run in turn from one host thread: a placeholder until one process per device
-  (``torch.distributed``) replaces it.
+- With a mesh (:mod:`lcvo_tpu_torch.parallel.mesh`) the step is SPMD, one process per
+  device: each rank passes its own part of the streams
+  (:func:`~lcvo_tpu_torch.parallel.mesh.shard_batched_state`), runs the vmapped step
+  on its device and gets its part back. The one value that crosses ranks is ``agg``,
+  summed over the mesh axis (the JAX package's replicated ``agg``). Without a mesh the
+  step is the batched step on one device.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_map
+from torch.utils._pytree import tree_map
 
 from lcvo_tpu_torch.core import state as st
 from lcvo_tpu_torch.core.state import resolve_device
-from lcvo_tpu_torch.parallel.mesh import (gather_batched_state, mesh_from_config,
-                                          shard_batched_state)
+from lcvo_tpu_torch.parallel.mesh import mesh_from_config, psum
 from lcvo_tpu_torch.pipeline import make_ba_step, make_process_frame
 from lcvo_tpu_torch.solve.ba import window as win_mod
 
@@ -90,41 +90,13 @@ def make_batched_carry(cfg, image_shape, n_streams: int, device="cuda"):
     return states, _broadcast(w0, n_streams)
 
 
-def _n_streams(tree) -> int:
-    return next(x for x in tree_flatten(tree)[0] if x is not None).shape[0]
-
-
-class _Parts:
-    """The stream dim cut over a mesh axis: one part per device (one part, the whole
-    batch, without a mesh), and one single-stream function built per device."""
-
-    def __init__(self, cfg, mesh, axis, device, build):
-        dev = resolve_device(device)
-        if mesh is None and tuple(cfg.runtime.mesh_shape):
-            mesh = mesh_from_config(cfg, device_type=dev.type)
-            axis = mesh.axis_names[0]
-        self.mesh, self.axis = mesh, axis
-        devs = [dev] if mesh is None else mesh.devices_along(axis)
-        self.fns = [build(d) for d in devs]
-
-    def run(self, fn, trees, gen, per_stream: list | None = None):
-        """``fn(part_fn, *part_trees, gen, part_of_per_stream)`` on each part; the
-        outputs gathered on the device of the first input."""
-        n = len(self.fns)
-        if self.mesh is None:
-            return fn(self.fns[0], *trees, gen, per_stream)
-        S = _n_streams(trees[0])
-        if S % n:
-            raise ValueError(f"{S} streams do not split over the {n} devices of mesh axis "
-                             f"{self.axis!r}")
-        m = S // n
-        parts = [[None] * n if t is None else shard_batched_state(t, self.mesh, self.axis)
-                 for t in trees]
-        outs = [fn(self.fns[k], *(p[k] for p in parts), gen,
-                   None if per_stream is None else per_stream[k * m:(k + 1) * m])
-                for k in range(n)]
-        home = next(x for x in tree_flatten(trees[0])[0] if x is not None).device
-        return gather_batched_state(outs, device=home)
+def _mesh_of(cfg, mesh, axis: str, dev: torch.device):
+    """``(mesh, axis)``: the mesh passed, else the one ``cfg.runtime.mesh_shape`` gives
+    (its first axis the stream axis), else ``(None, axis)``."""
+    if mesh is None and tuple(cfg.runtime.mesh_shape):
+        mesh = mesh_from_config(cfg, device_type=dev.type)
+        axis = mesh.axis_names[0]
+    return mesh, axis
 
 
 def _vmapped_frame(pf, states, images, samples, gen):
@@ -144,28 +116,33 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
 
     Returns ``step(states, images, gen_or_samples) -> (states, results, agg)``: every
     argument and result has a leading stream dim; ``gen_or_samples`` is a
-    ``torch.Generator`` on the device of every part, or injected PnP samples
-    (S, n_hyp, 3); ``agg`` holds the sums over the streams of ``n_tracked``,
-    ``n_inliers``, ``n_promoted`` and ``pose_ok`` as 0-d tensors on the device.
+    ``torch.Generator`` on ``device``, or injected PnP samples (S, n_hyp, 3); ``agg``
+    holds the sums over the streams of ``n_tracked``, ``n_inliers``, ``n_promoted`` and
+    ``pose_ok`` as 0-d tensors on the device.
 
-    When ``mesh`` is None and ``cfg.runtime.mesh_shape`` is set, the mesh comes from the
+    With a mesh every argument and result is this rank's part of the streams, and
+    ``agg`` holds the sums over the streams of all the ranks along ``axis``. When
+    ``mesh`` is None and ``cfg.runtime.mesh_shape`` is set, the mesh comes from the
     config (:func:`lcvo_tpu_torch.parallel.mesh.mesh_from_config`) with its first axis
     as the stream axis."""
-    parts = _Parts(cfg, mesh, axis, device, lambda d: make_process_frame(cfg, K, d))
-
-    def part(pf, states, images, samples, gen, _):
-        return _vmapped_frame(pf, states, images, samples, gen)
+    dev = resolve_device(device)
+    mesh, axis = _mesh_of(cfg, mesh, axis, dev)
+    pf = make_process_frame(cfg, K, dev)
 
     def step(states, images, gen_or_samples):
         samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
         gen = None if samples is not None else gen_or_samples
-        states, results = parts.run(part, (states, images, samples), gen)
+        states, results = _vmapped_frame(pf, states, images, samples, gen)
         agg = {
             "tracked": torch.sum(results.n_tracked),
             "inliers": torch.sum(results.n_inliers),
             "promoted": torch.sum(results.n_promoted),
             "pose_ok": torch.sum(results.pose_ok.to(torch.int32)),
         }
+        if mesh is not None:
+            # the fleet's sums: one collective for the four
+            total = psum(torch.stack(list(agg.values())), mesh, axis)
+            agg = dict(zip(agg, total.unbind()))
         return states, results, agg
 
     return step
@@ -189,27 +166,38 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
     Returns ``chunk_step(carry, frames (S, chunk, H, W), gen_or_samples,
     frame_idx=None) -> (carry', (R (S, chunk, 3, 3), t (S, chunk, 3), pose_ok (S, chunk),
     n_inliers (S, chunk)))`` with ``carry`` = states, or ``(states, windows)`` under BA.
-    ``gen_or_samples``: a ``torch.Generator`` on the device of every part, or injected
-    samples (S, chunk, n_hyp, 3). ``frame_idx``: the streams' ``state.frame_idx`` at the
-    start of the chunk as Python ints (one for all, or one per stream), the caller's
-    mirror; left out, it is read from the device once, which waits for it."""
+    ``gen_or_samples``: a ``torch.Generator`` on ``device``, or injected samples
+    (S, chunk, n_hyp, 3). ``frame_idx``: the streams' ``state.frame_idx`` at the start
+    of the chunk as Python ints (one for all, or one per stream), the caller's mirror;
+    left out, it is read from the device once, which waits for it.
+
+    With a mesh (passed, or from ``cfg.runtime.mesh_shape``) every argument and result
+    is this rank's part of the streams, ``frame_idx`` included. Nothing in the chunk
+    step crosses streams, so it makes no collective."""
     ba = cfg.ba.enabled
     every = cfg.ba.keyframe_every
+    dev = resolve_device(device)
+    _mesh_of(cfg, mesh, axis, dev)      # a mesh from the config must fit the world, as in the step
+    pf = make_process_frame(cfg, K, dev)
+    ba_step = make_ba_step(cfg, K, dev) if ba else None
 
-    def build(d):
-        return make_process_frame(cfg, K, d), (make_ba_step(cfg, K, d) if ba else None)
-
-    parts = _Parts(cfg, mesh, axis, device, build)
-
-    def part(fns, carry, frames, samples, gen, fidx):
-        pf, ba_step = fns
+    def chunk_step(carry, frames, gen_or_samples, frame_idx=None):
+        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
+        gen = None if samples is not None else gen_or_samples
+        S = frames.shape[0]
+        if frame_idx is None:
+            frame_idx = (carry[0] if ba else carry).frame_idx.tolist()
+        elif isinstance(frame_idx, int):
+            frame_idx = [frame_idx] * S
+        if len(frame_idx) != S:
+            raise ValueError(f"frame_idx holds {len(frame_idx)} entries for {S} streams")
         states, windows = carry if ba else (carry, None)
         outs = []
         for j in range(frames.shape[1]):
             states, res = _vmapped_frame(pf, states, frames[:, j],
                                          None if samples is None else samples[:, j], gen)
             outs.append(res)
-            due = [(f + j + 1) % every == 0 for f in fidx] if ba else [False]
+            due = [(f + j + 1) % every == 0 for f in frame_idx] if ba else [False]
             if any(due):
                 d, dw = _dims(states), _dims(windows)
                 new_states, new_windows, _ = torch.func.vmap(
@@ -223,17 +211,5 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
                    torch.stack([r.pose_ok for r in outs], 1),
                    torch.stack([r.n_inliers for r in outs], 1))
         return ((states, windows) if ba else states), stacked
-
-    def chunk_step(carry, frames, gen_or_samples, frame_idx=None):
-        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
-        gen = None if samples is not None else gen_or_samples
-        S = frames.shape[0]
-        if frame_idx is None:
-            frame_idx = (carry[0] if ba else carry).frame_idx.tolist()
-        elif isinstance(frame_idx, int):
-            frame_idx = [frame_idx] * S
-        if len(frame_idx) != S:
-            raise ValueError(f"frame_idx holds {len(frame_idx)} entries for {S} streams")
-        return parts.run(part, (carry, frames, samples), gen, list(frame_idx))
 
     return chunk_step

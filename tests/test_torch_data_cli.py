@@ -525,16 +525,19 @@ def test_dataset_tool_writes_all_layouts_and_resumes(tmp_path):
 
 
 def test_new_modules_and_tools_import_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter: the host-layer modules, the multi-stream modules, the
-    tools and chip_smoke.py."""
+    """In a fresh interpreter: the host-layer modules, the multi-stream and multi-process
+    modules, the tools, the rank programs of the tests and chip_smoke.py."""
     code = textwrap.dedent("""
         import importlib.util, os, sys
         import lcvo_tpu_torch.cli.run, lcvo_tpu_torch.data.datasets
         import lcvo_tpu_torch.data.native_loader, lcvo_tpu_torch.data.render
         import lcvo_tpu_torch.metrics, lcvo_tpu_torch.viz, lcvo_tpu_torch.utils.profiling
         import lcvo_tpu_torch.parallel.streams, lcvo_tpu_torch.parallel.mesh
+        import lcvo_tpu_torch.parallel.launch, lcvo_tpu_torch.solve.ba.sharded
         for path in ("tools/port_make_replay_dataset.py", "tools/port_run_replay.py",
-                     "tools/port_probe_host.py", "chip_smoke.py"):
+                     "tools/port_probe_host.py", "tools/port_dryrun_multirank.py",
+                     "tools/port_replay_seeds.py", "tests/torch_rank_programs.py",
+                     "chip_smoke.py"):
             spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)

@@ -1,7 +1,8 @@
-"""Multi-stream on one device: the port's batched step and chunk step (``torch.func.vmap``
-of the single-stream functions) against the single-stream step, against the JAX
-package's ``make_multistream_step``, and over a mesh of several CPU entries. The
-counterparts of tests/test_streams.py, at its sizes (160x96, 64 tracks, 2 levels,
+"""Multi-stream: the port's batched step and chunk step (``torch.func.vmap`` of the
+single-stream functions) against the single-stream step, against the JAX package's
+``make_multistream_step``, and over a mesh of 2 gloo ranks on the CPU, each rank a
+process that runs its part of the streams (``tests/torch_rank_programs.py:streams``).
+The counterparts of tests/test_streams.py, at its sizes (160x96, 64 tracks, 2 levels,
 3 iterations).
 
 Tolerances. A stream of the batched step is not always bit-identical to the
@@ -35,6 +36,7 @@ from lcvo_tpu.parallel import streams as jstreams
 from lcvo_tpu_torch.config import load_config
 from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.parallel import streams as ps
+from lcvo_tpu_torch.parallel.launch import run_ranks
 from lcvo_tpu_torch.parallel.mesh import make_mesh, mesh_from_config
 from lcvo_tpu_torch.pipeline import VisualOdometry, make_chunk_fn, make_process_frame
 
@@ -223,72 +225,112 @@ def ba_streams(seq, frames):
     return cfg, _bootstrapped(cfg, seq, frames, 4)
 
 
-def test_batched_chunk_step_with_ba_over_a_cpu_mesh_matches_each_stream(seq, frames, ba_streams):
-    """The batched chunk step with BA on (window 4, a keyframe every 2nd frame, 2 LM
-    steps, anchor refits on), chunk 3, over a mesh of 2 entries of the CPU (2 streams
-    per entry), streams at frame_idx 0, 1, 0, 1 (so the keyframe steps fall on
-    different frames of different streams): each stream equals its own ``chunk_fn``
-    with the same samples. R, t <= 1e-3, pose_ok and inlier counts equal, the carry's
-    masks, counters and ring equal, its floats as the module's docstring says."""
+@pytest.fixture(scope="module")
+def rank_results(tmp_path_factory, seq, frames, ba_streams, plain_streams):
+    """Two gloo ranks (``tests/torch_rank_programs.py:streams``), each given the whole
+    batch of 4 streams and taking its part of 2: the BA chunk step over a mesh of the
+    world (the streams at frame_idx 0, 1, 0, 1 with injected samples), and the step with
+    the mesh from ``runtime.mesh_shape: [2]`` (injected samples, then a generator).
+    Returns the inputs and each rank's results."""
     cfg, vos = ba_streams
     chunk = 3
     fidx = [vo._frame_idx for vo in vos]
     assert fidx == [0, 1, 0, 1]
-    carry = ps.stack_streams([vo.chunk_carry() for vo in vos])
-    fr = _next_frames(vos, frames, chunk)
-    idx = _samples(np.random.default_rng(2), vos, (chunk, N_HYP))
-    mesh = make_mesh(2, axis_names=("data",), device_type="cpu")
-    step = ps.make_multistream_chunk_step(cfg, seq.K, mesh=mesh, axis="data", device="cpu")
-    out, (R, t, ok, ninl) = step(carry, fr, idx, frame_idx=fidx)
-    assert R.shape == (4, chunk, 3, 3) and ninl.shape == (4, chunk)
+    _, pvos = plain_streams
+    inputs = {
+        "chunk": {"overrides": {**SMALL, **BA}, "K": seq.K, "frame_idx": fidx,
+                  "carry": ps.stack_streams([vo.chunk_carry() for vo in vos]),
+                  "frames": _next_frames(vos, frames, chunk),
+                  "samples": _samples(np.random.default_rng(2), vos, (chunk, N_HYP))},
+        "step": {"overrides": {**SMALL, "runtime": {"mesh_shape": [2], "mesh_axes": ["data"]}},
+                 "K": seq.K, "states": ps.stack_streams([vo.state for vo in pvos] * 2),
+                 "images": torch.cat([_next_frames(pvos, frames, 1)[:, 0]] * 2),
+                 "samples": _samples(np.random.default_rng(4), pvos * 2, (N_HYP,))},
+    }
+    d = tmp_path_factory.mktemp("streams_ranks")
+    torch.save(inputs, d / "inputs.pt")
+    run_ranks("tests/torch_rank_programs.py:streams", 2, [str(d / "inputs.pt"), str(d / "out")],
+              device="cpu", timeout=240)
+    return inputs, [dict(np.load(d / f"out_rank{r}.npz")) for r in range(2)]
+
+
+def test_batched_chunk_step_with_ba_over_a_cpu_mesh_matches_each_stream(seq, rank_results):
+    """The batched chunk step with BA on (window 4, a keyframe every 2nd frame, 2 LM
+    steps, anchor refits on), chunk 3, over a mesh of 2 gloo ranks on the CPU, each
+    rank running its part of 2 streams; streams at frame_idx 0, 1, 0, 1 (so the keyframe
+    steps fall on different frames of different streams): each stream of each rank's
+    part equals its own ``chunk_fn`` with the same samples. R, t <= 1e-3, pose_ok and
+    inlier counts equal, the carry's masks, counters and ring equal, its floats as the
+    module's docstring says."""
+    inputs, ranks = rank_results
+    c = inputs["chunk"]
+    cfg = load_config(overrides=c["overrides"])
     cf = make_chunk_fn(cfg, seq.K, "cpu")
-    for s in range(len(vos)):
-        out1, (R1, t1, ok1, ninl1) = cf(vos[s].chunk_carry(), fr[s], idx[s], frame_idx=fidx[s])
-        assert torch.allclose(R[s], R1, rtol=0, atol=1e-3)
-        assert torch.allclose(t[s], t1, rtol=0, atol=1e-3)
-        assert torch.equal(ok[s], ok1) and torch.equal(ninl[s], ninl1)
-        assert bool(ok1.all())
-        _assert_close_state(ps.select_stream(out, s), out1, 1e-2, 1e-3, f"stream {s}")
-    # the ring moved on the cadence of each stream: from frame_idx 0 the chunk ends on
-    # one keyframe (frame_idx 2), from 1 on two (2 and 4)
-    assert out[1].head.tolist() == [1, 2, 1, 2]
+    for r, got in enumerate(ranks):
+        assert got["chunk/R"].shape == (2, 3, 3, 3) and got["chunk/n_inliers"].shape == (2, 3)
+        carry = [torch.from_numpy(got[f"chunk/carry/{i}"])
+                 for i in range(len(_leaves(c["carry"])))]
+        for k in range(2):
+            s = 2 * r + k
+            out1, (R1, t1, ok1, ninl1) = cf(ps.select_stream(c["carry"], s), c["frames"][s],
+                                            c["samples"][s], frame_idx=c["frame_idx"][s])
+            assert torch.allclose(torch.from_numpy(got["chunk/R"][k]), R1, rtol=0, atol=1e-3)
+            assert torch.allclose(torch.from_numpy(got["chunk/t"][k]), t1, rtol=0, atol=1e-3)
+            assert torch.equal(torch.from_numpy(got["chunk/pose_ok"][k]), ok1)
+            assert torch.equal(torch.from_numpy(got["chunk/n_inliers"][k]), ninl1)
+            assert bool(ok1.all())
+            for x, y in zip([x[k] for x in carry], _leaves(out1), strict=True):
+                assert x.shape == y.shape and x.dtype == y.dtype, (r, k)
+                if x.is_floating_point():
+                    assert torch.allclose(x, y, rtol=1e-2, atol=1e-3, equal_nan=True), (r, k, x.shape)
+                else:
+                    assert torch.equal(x, y), (r, k, x.shape)
+        # the ring moved on the cadence of each stream: from frame_idx 0 the chunk ends on
+        # one keyframe (frame_idx 2), from 1 on two (2 and 4)
+        head_at = next(i for i, x in enumerate(_leaves(c["carry"])) if x is c["carry"][1].head)
+        assert carry[head_at].tolist() == [1, 2]
 
 
-def test_mesh_from_config_drives_multistream_step(seq, frames, plain_streams, monkeypatch):
-    """``runtime.mesh_shape``/``mesh_axes`` build the mesh when none is passed (4
-    entries of the CPU here): 4 streams run as 4 vmapped parts of one stream each, and
-    give what the step without a mesh gives (to the step's tolerance: a part of one
-    stream is a batch of another size); ``agg`` holds the sums."""
-    cfg, vos = plain_streams
-    mcfg = load_config(overrides={**SMALL, "runtime": {"mesh_shape": [4], "mesh_axes": ["data"]}})
-    mesh = mesh_from_config(mcfg, device_type="cpu")
-    assert mesh.shape == {"data": 4} and mesh.axis_names == ("data",)
-    states = ps.stack_streams([vo.state for vo in vos] * 2)
-    imgs = torch.cat([_next_frames(vos, frames, 1)[:, 0]] * 2)
-    idx = _samples(np.random.default_rng(4), vos * 2, (N_HYP,))
-    parts = []
-    vmapped = ps._vmapped_frame
+def test_mesh_from_config_drives_multistream_step(seq, rank_results):
+    """``runtime.mesh_shape: [2]`` builds the mesh when none is passed: on each of 2
+    gloo ranks the step runs that rank's part of 2 of the 4 streams and gives what the
+    step without a mesh gives for them over all 4 (to the step's tolerance: a part of 2
+    streams is a batch of another size); ``agg`` holds the sums over all 4 streams on
+    both ranks. The generator path steps every stream of the part."""
+    inputs, ranks = rank_results
+    s = inputs["step"]
+    _, res0, _ = ps.make_multistream_step(load_config(overrides=SMALL), seq.K, device="cpu")(
+        s["states"], s["images"], s["samples"])
+    for r, got in enumerate(ranks):
+        for f in res0._fields:
+            a, b = torch.from_numpy(got[f"step/res/{f}"]), getattr(res0, f)[2 * r:2 * r + 2]
+            assert torch.allclose(a, b, rtol=0, atol=1e-5) if a.is_floating_point() else torch.equal(a, b), f
+        assert got["step/agg/tracked"].shape == ()
+        assert int(got["step/agg/tracked"]) == int(res0.n_tracked.sum())
+        assert int(got["step/agg/inliers"]) == int(res0.n_inliers.sum())
+        assert int(got["step/agg/promoted"]) == int(res0.n_promoted.sum())
+        assert int(got["step/agg/pose_ok"]) == int(res0.pose_ok.sum())
+        assert got["gen/R"].shape == (2, 3, 3) and np.isfinite(got["gen/t"]).all()
+        np.testing.assert_array_equal(got["gen/frame_idx"], got["gen/frame_idx_in"] + 1)
 
-    def spy(pf, states_, images, samples, gen):
-        parts.append(images.shape[0])
-        return vmapped(pf, states_, images, samples, gen)
 
-    monkeypatch.setattr(ps, "_vmapped_frame", spy)
-    out, res, agg = ps.make_multistream_step(mcfg, seq.K, device="cpu")(states, imgs, idx)
-    assert parts == [1, 1, 1, 1]
-    _, res0, _ = ps.make_multistream_step(cfg, seq.K, device="cpu")(states, imgs, idx)
-    assert parts == [1, 1, 1, 1, 4]
-    for f in res._fields:
-        a, b = getattr(res, f), getattr(res0, f)
-        assert torch.allclose(a, b, rtol=0, atol=1e-5) if a.is_floating_point() else torch.equal(a, b), f
-    assert res.R.shape == (4, 3, 3) and agg["tracked"].shape == ()
-    assert int(agg["tracked"]) == int(res.n_tracked.sum())
-    assert int(agg["pose_ok"]) == int(res.pose_ok.sum())
-    # the generator path: one draw for all the streams of a part, every stream stepped
-    gen = torch.Generator().manual_seed(3)
-    out_g, res_g, _ = ps.make_multistream_step(mcfg, seq.K, device="cpu")(states, imgs, gen)
-    assert res_g.R.shape == (4, 3, 3) and bool(torch.isfinite(res_g.t).all())
-    assert out_g.frame_idx.tolist() == (states.frame_idx + 1).tolist()
+def test_make_mesh_raises_without_a_group():
+    """No process group in this process: ``make_mesh`` and ``mesh_from_config`` raise,
+    naming the mesh's size and the world's."""
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="a mesh of 2 ranks.*world size 0"):
+        make_mesh(2, device_type="cpu")
+    mcfg = load_config(overrides={**SMALL, "runtime": {"mesh_shape": [2]}})
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        mesh_from_config(mcfg, device_type="cpu")
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        ps.make_multistream_step(mcfg, np.eye(3), device="cpu")
+
+
+def test_make_mesh_raises_when_the_world_size_differs(rank_results):
+    """On 2 ranks a mesh of 4 from ``runtime.mesh_shape`` is refused on both."""
+    _, ranks = rank_results
+    assert all(bool(got["mesh_of_another_size_raised"]) for got in ranks)
 
 
 class _Ops(TorchDispatchMode):

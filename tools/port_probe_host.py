@@ -1,5 +1,6 @@
 """What the machine that holds the card offers to the port's host layers: Python and
-PyTorch versions, the card's name and power limit, the optional packages (PIL,
+PyTorch versions, the card's name and power limit, the CUDA device count and what
+``torch.distributed`` offers (gloo, NCCL and its version), the optional packages (PIL,
 matplotlib, PyYAML, scipy), the build tools the native PNG decoder needs (make, g++,
 zlib.h, libz) and whether ``make -C native`` builds a library that loads.
 
@@ -41,6 +42,16 @@ def main(argv=None):
         rep["torch"] = torch.__version__
         rep["cuda"] = torch.version.cuda
         rep["cuda_available"] = torch.cuda.is_available()
+        rep["cuda_device_count"] = torch.cuda.device_count()
+        import torch.distributed as dist
+
+        rep["distributed"] = dist.is_available()
+        rep["gloo"] = rep["distributed"] and dist.is_gloo_available()
+        rep["nccl"] = rep["distributed"] and dist.is_nccl_available()
+        try:
+            rep["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+        except (AttributeError, RuntimeError) as e:
+            rep["nccl_version"] = f"{type(e).__name__}: {e}"
     except ImportError as e:
         rep["torch"] = f"missing: {e}"
     rc, out = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
