@@ -18,7 +18,11 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    time), and the SIFT caller's (the three flattened (6*Hp, W) layer stacks, S = 59,
    N = 341, f32, centers built by ``frontend.sift.stack_centers`` with keypoints on the
    first and last rows of a layer and x past both borders; and S == W on a small
-   stack). Tolerance: exact (the kernel is a copy). Times the kernel and the plain
+   stack). Then every KLT call of the paths this script drives, at its own image size,
+   block size, pad and N: the target and template blocks of every pyramid level at
+   1240x376 (default, throughput and turn_robust configurations), 416x160 (the stress
+   scenes) and 800x600 and 640x480 (the layout replays). Tolerance: exact (the kernel is
+   a copy). Times the kernel and the plain
    version at the default path's level-0 target call, with ``pad=0`` on the
    edge-padded copy of the same image, and at the SIFT caller's octave-0 call (beside
    the y-pad copy that precedes it), with CUDA graphs of back-to-back launches and
@@ -112,8 +116,43 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    within the ``ba_solve`` line, the matcher exact, and ``tools/port_dryrun_multirank.py
    --device cuda --backend gloo``. NCCL holds one rank per card, so the two ranks check
    the cross-rank arithmetic and give no speed figure.
-12. Output: the kernel table as one JSON line (the 2-D entry and the layered entry),
-   the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line.
+12. Candidate modes (``[main:sift-mask]``, ``[main:harris-mask]``, ``[main:shi-mask+ba]``):
+   ``bench.py``'s three modes that no path above runs, through ``main_path_phase`` on the
+   same frames (42, 42 and 74), each under 8x the JAX package's CPU figure, with the
+   launch floor of its candidate stage (SIFT in sift-mask) and, for shi-mask+ba, the BA
+   checks. They run right after the checkpoint phase.
+13. Recovery (``[recovery]``, ``[recovery:run]``, ``[recovery:ba]``, ``[recovery:tracks]``):
+   the first 64 corridor frames with seeded noise on frames 28-30, through ``run_chunked``
+   and ``run`` (default configuration) and ``configs/turn_robust.yaml`` (chunked): one
+   pose per frame from ``frame_gap`` on, at least one re-bootstrap, health 0 and the last
+   8 poses good at the end, no more re-bootstraps than the JAX package on the CPU on the
+   same frames and an ATE under the JAX file's 1.0 m where that package meets it, else
+   ``JAX_ATE_FACTOR`` times its figure, the median step after the recovery within ``SCALE_SEAM`` of the one before,
+   launches at or above the floor that counts the re-bootstrap's KLT chain, no host sync
+   in a chunk of the corrupted frames; with BA, every bootstrap leaves an empty window and
+   the mirror at 0, and keyframes pushed = refines run = the cadence over each segment,
+   none above its starting cost. Then a track table cut to 8 refills past 24 by
+   re-detection, and a cleared one is detected (pose_ok False, health >= 1).
+14. Stress (``[stress]``): ``tests/test_stress.py``'s turn, textureless band with a moving
+   occluder and arena corner through ``run``: at 416x160, where that file set its bounds,
+   the turn and the corner with those bounds; at 1240x376 all three held to the JAX
+   package's figures on the same frames (no more re-bootstraps than it, and the file's
+   bound where it meets it, else ``JAX_ATE_FACTOR`` times its ATE).
+15. Long run (``[longhorizon]``): 300 corridor frames through ``run``: the track budget
+   holds (late median inliers above 8 and above 0.3x the early median, promotions in the
+   last 100 frames), ATE under 8 m, frames/s, and the device's peak allocation after frame
+   100 and at the end, which may not grow by more than ``LONGHORIZON_MEM_GROWTH_MB``.
+   Phases 13-15 run after phase 12; the layout replays below run after phase 8.
+16. Layouts (``[replay:malaga]``, ``[replay:parking]``): the dataset tool writes 120 frames
+   in each layout and size on the card, the CLI replays them with ``--chunked``: one pose
+   per frame from the dataset's gap on, pose_ok on >= 90% of rows, ATE under 8x the JAX
+   CLI's CPU figure, every JPEG offered to the native decoder, counted as declined and
+   read by PIL (Malaga, with its GPS ground truth), every PNG decoded natively (parking).
+17. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
+   from its configuration and re-bootstrap count, each path checked against it); the
+   kernel table as one JSON line (the 2-D entry, whose ``launches_by_path`` holds every
+   single-stream path above, and the layered entry), the ``nvidia-smi`` line, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
 """
@@ -216,6 +255,69 @@ DIST_MATCH = (1024, 1024, 128)
 DIST_RANKS = 2
 DIST_RANK_TIMEOUT_S = 180
 BA_LINE = {"cost0_rel": 1e-5, "cost_rel": 0.05, "R": 2e-4, "t": 2e-3, "X": 2e-2}
+# The three candidate modes of bench.py that no earlier phase runs, as bench.py builds
+# them (the VOConfig defaults with find_new_candidates_method set; "+ba" turns window BA
+# on at its defaults): sift-mask and harris-mask on N_FRAMES frames, shi-mask+ba on
+# BA_FRAMES. ATE bounds: 8x the JAX package's CPU figure on the same frames at seed 0
+# (tools/port_parity_cpu.py --width 1240 --height 376 --packages jax --mode M [--ba]
+# --frames F).
+MODES = (("sift-mask", N_FRAMES, 0.0032837), ("harris-mask", N_FRAMES, 0.0027965),
+         ("shi-mask+ba", BA_FRAMES, 0.0117692))
+# The recovery and stress paths are held to what the JAX package does on the same
+# frames on the CPU: no more re-bootstraps than it needs, and an ATE under the JAX test
+# file's bound where the JAX package meets that bound, else under JAX_ATE_FACTOR times
+# its figure.
+JAX_ATE_FACTOR = 1.5
+
+
+def jax_held_bound(jax_ate: float, file_bound: float) -> float:
+    return file_bound if jax_ate < file_bound else JAX_ATE_FACTOR * jax_ate
+
+
+# The recovery path: the first RECOVERY_FRAMES frames of the corridor with frames 28-30
+# replaced by seeded uniform noise (data.synthetic.noise_burst), inside the second chunk
+# of 16. JAX figures: tools/port_parity_cpu.py --width 1240 --height 376 --frames 64
+# --burst 28 31 --packages jax [--per-frame] [--config configs/turn_robust.yaml --seed 1]
+# as (ATE m, re-bootstraps); tests/test_fault_injection.py bounds both loops at 1.0 m.
+# The chunked runs hold the pose from the burst to the end of its chunk and through the
+# re-bootstrap (15 entries), hence their larger figure, above that bound in both packages.
+RECOVERY_FRAMES = 64
+RECOVERY_BURST = (28, 31)
+RECOVERY_BURST_SEED = 0
+RECOVERY_FILE_BOUND_M = 1.0
+RECOVERY_JAX_CPU = (1.1957534, 1)        # default configuration, run_chunked
+RECOVERY_RUN_JAX_CPU = (0.4732892, 1)    # default configuration, run
+RECOVERY_BA_JAX_CPU = (1.1947748, 1)     # configs/turn_robust.yaml at seed 1, run_chunked
+SCALE_SEAM = (0.75, 1.33)                 # median step after the recovery over before
+# tests/test_stress.py's sequences, frame counts and bounds. The turn (4 deg/frame) and
+# the arena corner (3 deg/frame) are past the default tracker's reach at 1240x376 in
+# both packages: on these uint8 frames the JAX package on the CPU reads 1.38 m with 3
+# re-bootstraps on the turn and 2.02 m with 2 on the corner, where the test file's 0.8 m
+# bounds (and "no re-bootstrap" on the corner) were set at 416x160. So both run at
+# 416x160 with the file's bounds, and at full width held to the JAX package's figures
+# on the same frames (tools/port_parity_cpu.py --scene turn|arena|textureless --frames
+# 60|70|60 --per-frame --width 1240 --height 376 --packages jax) by jax_held_bound: the
+# textureless band to the file's 0.5 m (JAX: 0.0125 m, no re-bootstrap).
+STRESS_FRAMES = 60
+STRESS_ARENA_FRAMES = 70
+STRESS_SMALL = (416, 160)
+STRESS_FILE_BOUND_M = 0.8
+STRESS_BAND_FILE_BOUND_M = 0.5
+STRESS_TURN_JAX_CPU = (1.3800895, 3)
+STRESS_ARENA_JAX_CPU = (2.0237058, 2)
+STRESS_BAND_JAX_CPU = (0.0125160, 0)
+# tests/test_longhorizon.py's run at the main paths' width; the device holds
+# fixed-capacity state, so its peak allocation after frame 100 may not grow
+LONGHORIZON_FRAMES = 300
+LONGHORIZON_MEM_GROWTH_MB = 8.0
+# The Malaga (800x600, JPEG frames, GPS ground truth) and parking (640x480, PNG) layouts
+# through the CLI, cut to REPLAY_LAYOUT_FRAMES frames. ATE bounds: 8x the JAX CLI's
+# figure on the CPU on files the dataset tool rendered there (python
+# tools/port_make_replay_dataset.py --dataset D --frames 120 --out DIR --device cpu;
+# python -m lcvo_tpu.cli.run --dataset D --data-root DIR --frames 120 --chunked).
+REPLAY_LAYOUT_FRAMES = 120
+REPLAY_LAYOUT_SIZES = {"malaga": (800, 600), "parking": (640, 480)}   # the tool's defaults
+REPLAY_LAYOUT_JAX_CPU_ATE_M = {"malaga": 0.0484, "parking": 0.1359}
 
 
 def _say(msg: str) -> None:
@@ -366,7 +468,24 @@ def _stack_keypoints(n: int, L: int, H: int, W: int, gen, device):
     return xy, li
 
 
-def kernel_phase(cfg, ref_cfg) -> dict:
+def _path_calls(cfgs) -> list[tuple[int, int, int, int, int]]:
+    """(H, W, S, pad, N) of every KLT call of ``extract_blocks`` under these
+    configurations: per pyramid level the target block and the template block (S = w+6)
+    with the level's pad, at the track table's N (tracks + candidates) and at the
+    tracks' and the candidates' own counts."""
+    out = []
+    for c in cfgs:
+        ns = sorted({c.state.max_tracks + c.state.max_candidates, c.state.max_tracks,
+                     c.state.max_candidates}, reverse=True)
+        for (H, W, S, pad) in _level_calls(c):
+            for S_call in (S, c.klt.window + 6):
+                for N in ns:
+                    if (H, W, S_call, pad, N) not in out:
+                        out.append((H, W, S_call, pad, N))
+    return out
+
+
+def kernel_phase(cfg, ref_cfg, path_cfgs) -> dict:
     import torch
 
     from lcvo_tpu_torch import kernels
@@ -395,6 +514,20 @@ def kernel_phase(cfg, ref_cfg) -> dict:
                         n_cases += 1
     _say(f"[kernel] extract_blocks == plain on {n_cases} cases (f32+bf16, sizes {sizes}, "
          f"N 2048/2047/5/1, S 21/29/30/33, pad 0 and (S+1)//2): max|err| {max_err}")
+
+    # every KLT call the driven paths make, at its own image size, block size, pad and N:
+    # the main, BA, mode and recovery paths at 1240x376, the stress scenes at 416x160
+    # and the layout replays at 800x600 and 640x480, with each level's template block
+    path_calls = _path_calls(path_cfgs)
+    n_path = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (H, W, S, pad, N) in path_calls:
+            img = (torch.rand((H, W), generator=gen, device=dev) * 255).to(dtype)
+            c = _test_centers(N, H, W, S, gen, dev)
+            max_err = max(max_err, _check_case(img, c, S, pad, "driven path"))
+            n_path += 1
+    _say(f"[kernel] extract_blocks == plain on {n_path} cases of the driven paths' own calls "
+         f"(f32+bf16, (H, W, S, pad, N) {path_calls}): max|err| {max_err}")
 
     # the tracker's calls under the second main path's config: other window, so block
     # sizes that are not template arguments of the kernel
@@ -755,6 +888,438 @@ def checkpoint_phase(tag: str, cfg, seq, frames, n_frames: int, want_poses) -> d
            "refines_after_resume": rest.ba_refine_stats()[0]}
     _say(f"[{tag}] " + json.dumps(out))
     return out
+
+
+def _launch_floor(cfg, steps: int, boots: int, extra_hops: int = 0) -> int:
+    """The fewest ``extract_blocks`` launches of ``steps`` calls of ``process_frame`` and
+    ``boots`` KLT bootstraps of ``frame_gap`` hops (the first) or ``rebootstrap_skip``
+    hops (each re-bootstrap), plus ``extra_hops`` hops: 6 per tracked frame pair, 6 more
+    per step where the candidates come from SIFT, and 6 per bootstrap that describes its
+    last frame for the sift-sift table."""
+    mode = cfg.find_new_candidates_method
+    gap, skip = cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
+    per_step = 12 if mode.startswith("sift") else 6
+    hops = (gap + skip * (boots - 1) if boots else 0) + extra_hops
+    return per_step * steps + 6 * hops + (6 * boots if mode == "sift-sift" else 0)
+
+
+def _scale_seam(est: np.ndarray, flags=None, pre_stop: int | None = None) -> float:
+    """Median step length after a recovery over the one before it: the first and last
+    8 steps of a chunked run, or (``flags``, ``pre_stop``) the healthy steps before index
+    ``pre_stop`` against the healthy steps among the last 12, as the JAX package's
+    per-frame test reads it."""
+    d = np.linalg.norm(np.diff(est, axis=0), axis=1)
+    if flags is None:
+        return float(np.median(d[-8:]) / np.median(d[:8]))
+    good = flags[:-1] & flags[1:] & (d > 1e-9)
+    pre = d[:pre_stop][good[:pre_stop]]
+    post = d[-12:][good[-12:]]
+    if len(pre) < 5 or len(post) < 5:
+        raise AssertionError(f"too few healthy steps around the burst: {len(pre)}, {len(post)}")
+    return float(np.median(post) / np.median(pre))
+
+
+def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tuple:
+    """One recovery run on the card: counters at 0 before, read after; one pose per
+    frame from ``frame_gap`` on, at least one re-bootstrap and no more than the JAX
+    package's ``jax = (ATE, re-bootstraps)`` on the same frames, ``health`` 0 at the end
+    and the last 8 poses good, ATE under ``jax_held_bound``, the scale seam inside
+    ``SCALE_SEAM`` and launches at or above the floor."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.metrics import ate_rmse
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+
+    n = len(frames)
+    gap, skip = cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    segments = []
+    boot = vo.bootstrap
+
+    def watched_bootstrap(*a, **k):     # steps since the previous bootstrap, and after it
+        segments.append(vo._frame_idx)
+        out = boot(*a, **k)
+        if vo.window is not None and (vo._frame_idx or bool(vo.window.kf_valid.any())):
+            raise AssertionError(f"[{tag}] a bootstrap left frame_idx {vo._frame_idx} or a "
+                                 f"keyframe in the window")
+        return out
+
+    vo.bootstrap = watched_bootstrap
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if chunked:
+        traj = vo.run_chunked(frames, chunk=CHUNK)
+    else:
+        traj = vo.run(iter(frames), n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["extract_blocks"]
+    segments = segments[1:] + [vo._frame_idx]
+    est = np.asarray(traj)
+    flags = np.asarray(vo.pose_ok_flags, bool)
+    n_reb = vo.n_rebootstraps
+    if chunked:
+        seam = _scale_seam(est)
+        floor = _launch_floor(cfg, n - 1 - gap - (skip + 1) * n_reb, 1 + n_reb)
+    else:
+        seam = _scale_seam(est, flags, RECOVERY_BURST[0] - gap - 1)
+        # every frame pair is tracked once, by a step or by a bootstrap chain
+        floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
+    ate = ate_rmse(est, seq.gt_positions()[gap: gap + len(est)])
+    jax_ate, jax_reb = jax
+    bound = jax_held_bound(jax_ate, RECOVERY_FILE_BOUND_M)
+    out = {"frames": n, "burst": list(RECOVERY_BURST), "burst_seed": RECOVERY_BURST_SEED,
+           "chunked": chunked, "poses": len(est), "rebootstraps": n_reb,
+           "health_end": int(vo.state.health), "last_8_pose_ok": bool(flags[-8:].all()),
+           "pose_ok_rate": float(flags.mean()),
+           "not_ok_indices": [int(i) for i in np.flatnonzero(~flags)],
+           "ate_m": ate, "ate_bound_m": bound, "jax_cpu_ate_m": jax_ate,
+           "jax_cpu_rebootstraps": jax_reb, "scale_seam": seam, "launches": launches, "launches_floor": floor,
+           "steps_per_segment": segments, "wall_s": wall}
+    _say(f"[{tag}] " + json.dumps(out))
+    if est.shape != (n - gap, 3) or not np.all(np.isfinite(est)):
+        raise AssertionError(f"[{tag}] trajectory shape {est.shape} or non-finite entries")
+    if n_reb < 1 or out["health_end"] != 0 or not out["last_8_pose_ok"]:
+        raise AssertionError(f"[{tag}] no recovery: {n_reb} re-bootstraps, health "
+                             f"{out['health_end']}, last 8 pose_ok {flags[-8:].tolist()}")
+    if n_reb > jax_reb:
+        raise AssertionError(f"[{tag}] {n_reb} re-bootstraps, the JAX package {jax_reb}")
+    if not ate < bound:
+        raise AssertionError(f"[{tag}] ATE {ate} m >= {bound} m")
+    if not SCALE_SEAM[0] < seam < SCALE_SEAM[1]:
+        raise AssertionError(f"[{tag}] scale seam {seam} outside {SCALE_SEAM}")
+    if launches < floor:
+        raise AssertionError(f"[{tag}] extract_blocks launched {launches} times, < {floor}")
+    return vo, out
+
+
+def recovery_phase(cfg, turn_cfg, seq, clean) -> dict:
+    """``[recovery]``: the default configuration through a seeded noise burst inside
+    the second chunk, chunked (and one chunk of the burst's frames under the sync
+    detector), then the same frames through the per-frame ``run``; ``[recovery:ba]``:
+    ``configs/turn_robust.yaml`` through the same burst, with keyframes and refines held
+    against the cadence that restarts at every bootstrap; ``[recovery:tracks]``: a
+    track table cut to 8 refills, a cleared one is detected. Returns each run's
+    launches and their floor by path."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.data.synthetic import noise_burst
+    from lcvo_tpu_torch.pipeline import VisualOdometry, keyframes_in
+
+    t_phase = time.perf_counter()
+    frames = noise_burst(clean[:RECOVERY_FRAMES], *RECOVERY_BURST, seed=RECOVERY_BURST_SEED)
+    by_path = {}
+    vo, out = _recovery_run("recovery", cfg, seq, frames, RECOVERY_JAX_CPU, chunked=True)
+    by_path["recovery"] = (out["launches"], out["launches_floor"])
+    # a chunk of the burst and the frames around it, from the state the run ended in;
+    # the carry is not kept and the generator is put back
+    lo = cfg.bootstrap.frame_gap + 1 + CHUNK
+    batch = torch.from_numpy(frames[lo: lo + CHUNK]).to("cuda")
+    step = vo.make_chunk_step(CHUNK)
+    gen_state = vo._gen.get_state()
+    syncs = _host_syncs(lambda: step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx))
+    vo._gen.set_state(gen_state)
+    if syncs:
+        raise AssertionError(f"[recovery] the chunk step on corrupted frames waits for the "
+                             f"device at {syncs}")
+    _say(f"[recovery] a chunk of frames {lo}-{lo + CHUNK - 1} (noise on "
+         f"{RECOVERY_BURST[0]}-{RECOVERY_BURST[1] - 1}) under "
+         f"torch.cuda.set_sync_debug_mode('warn'): no host sync")
+
+    _, out = _recovery_run("recovery:run", cfg, seq, frames, RECOVERY_RUN_JAX_CPU,
+                           chunked=False)
+    by_path["recovery_run"] = (out["launches"], out["launches_floor"])
+
+    vo, out = _recovery_run("recovery:ba", turn_cfg, seq, frames, RECOVERY_BA_JAX_CPU,
+                            chunked=True)
+    every = turn_cfg.ba.keyframe_every
+    want = sum(keyframes_in(0, s, every) for s in out["steps_per_segment"])
+    refines, cost_up = vo.ba_refine_stats()
+    ring = int(vo.window.kf_valid.sum())
+    ba = {"keyframes": vo.n_keyframes, "refines": refines, "refines_cost_up": cost_up,
+          "keyframes_from_cadence": want, "ring_filled": ring,
+          "frame_idx_host": vo._frame_idx, "frame_idx_device": int(vo.state.frame_idx)}
+    _say("[recovery:ba] " + json.dumps(ba))
+    if not (vo.n_keyframes == refines == want > 0 and cost_up == 0
+            and ring == min(out["steps_per_segment"][-1] // every, turn_cfg.ba.window)
+            and ba["frame_idx_host"] == ba["frame_idx_device"]):
+        raise AssertionError(f"[recovery:ba] BA bookkeeping across the re-bootstrap: {ba}")
+    by_path["recovery_ba"] = (out["launches"], out["launches_floor"])
+
+    # forced drop to 8 tracks, then total loss, on clean frames
+    gap = cfg.bootstrap.frame_gap
+    kernels.reset_launches()
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    vo.bootstrap(list(clean[: gap + 1]))
+    for i in range(gap + 1, 20):
+        vo.step(clean[i])
+    before = int(vo.state.tracks.count())
+    valid = vo.state.tracks.valid
+    keep = torch.zeros_like(valid)
+    keep[torch.nonzero(valid).flatten()[:8]] = True
+    vo.state = vo.state._replace(tracks=vo.state.tracks._replace(valid=keep))
+    counts = [int(vo.step(clean[i]).n_tracked) for i in range(20, 40)]
+    health_after_drop = int(vo.state.health)
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    vo.bootstrap(list(clean[: gap + 1]))
+    vo.step(clean[gap + 1])
+    s = vo.state
+    vo.state = s._replace(tracks=s.tracks._replace(valid=torch.zeros_like(s.tracks.valid)),
+                          cands=s.cands._replace(valid=torch.zeros_like(s.cands.valid)))
+    res = vo.step(clean[gap + 2])
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["extract_blocks"]
+    floor = _launch_floor(cfg, (40 - gap - 1) + 2, 0, extra_hops=2 * gap)
+    tr = {"tracks_before_drop": before, "tracks_after_drop_by_frame": counts,
+          "health_after_refill": health_after_drop, "total_loss_pose_ok": bool(res.pose_ok),
+          "total_loss_health": int(vo.state.health), "launches": launches, "launches_floor": floor}
+    _say("[recovery:tracks] " + json.dumps(tr))
+    if not (before > 20 and counts[-1] > 3 * 8 and health_after_drop == 0):
+        raise AssertionError(f"[recovery:tracks] the table did not refill: {tr}")
+    if tr["total_loss_pose_ok"] or tr["total_loss_health"] < 1:
+        raise AssertionError(f"[recovery:tracks] total track loss not detected: {tr}")
+    if launches < floor:
+        raise AssertionError(f"[recovery:tracks] extract_blocks launched {launches} times, < {floor}")
+    by_path["recovery_tracks"] = (launches, floor)
+    _say(f"[recovery] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return by_path
+
+
+def _stress_run(tag: str, cfg, K, frames, gt, ate_bound: float,
+                max_rebootstraps: int | None) -> tuple:
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.metrics import ate_rmse
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+
+    n = len(frames)
+    gap = cfg.bootstrap.frame_gap
+    vo = VisualOdometry(cfg, K, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = vo.run(iter(frames), n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["extract_blocks"]
+    est = np.asarray(traj)
+    floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
+    ate = ate_rmse(est, gt[gap: gap + len(est)]) if len(est) == n - gap else float("nan")
+    last5 = [bool(r.pose_ok) for r in vo.results[-5:]]
+    out = {"frames": n, "poses": len(est), "ate_m": ate, "ate_bound_m": ate_bound,
+           "health_end": int(vo.state.health), "rebootstraps": vo.n_rebootstraps,
+           "rebootstraps_max": max_rebootstraps,
+           "last_5_pose_ok": all(last5), "frames_per_s": n / wall, "launches": launches,
+           "launches_floor": floor}
+    _say(f"[stress] {tag}: " + json.dumps(out))
+    faults = []
+    if len(est) != n - gap or not np.all(np.isfinite(est)):
+        faults.append(f"{len(est)} poses for {n} frames or non-finite")
+    if not ate < ate_bound or not all(last5):
+        faults.append(f"ATE {ate} m (bound {ate_bound}), last 5 pose_ok {last5}")
+    if max_rebootstraps is not None and vo.n_rebootstraps > max_rebootstraps:
+        faults.append(f"{vo.n_rebootstraps} re-bootstrap(s), at most {max_rebootstraps}")
+    if launches < floor:
+        faults.append(f"extract_blocks launched {launches} times, < {floor}")
+    out["faults"] = [f"{tag}: {f}" for f in faults]
+    return out
+
+
+def stress_phase(cfg) -> dict:
+    """``[stress]``: the three sequences of ``tests/test_stress.py`` through the per-frame
+    ``run`` at the main paths' width, uint8 frames: a 60 degree turn in 15 frames (health
+    0 and the last 5 poses good at the end), a textureless band with a moving occluder,
+    and the arena's 90 degree corner. The turn and the corner run at 416x160 with that
+    file's bounds (0.8 m; no re-bootstrap on the corner), and all three at full width
+    held to the JAX package's figures on the same frames (``jax_held_bound``, and no more
+    re-bootstraps than it needs; see ``STRESS_SMALL``). Every scene runs before a fault
+    is raised. Returns each scene's launches and their floor."""
+    from lcvo_tpu_torch.config import load_config
+    from lcvo_tpu_torch.data.render import FastArenaRenderer
+    from lcvo_tpu_torch.data.synthetic import SyntheticSequence, trajectory_loop, trajectory_turn
+
+    t_phase = time.perf_counter()
+    n, m = STRESS_FRAMES, STRESS_ARENA_FRAMES
+    by_path, faults = {}, []
+    full = (cfg.image_width, cfg.image_height)
+    for tag, (W, H), bound, max_reb in (
+            ("sharp_turn_416x160", STRESS_SMALL, STRESS_FILE_BOUND_M, None),
+            ("sharp_turn", full, jax_held_bound(STRESS_TURN_JAX_CPU[0], STRESS_FILE_BOUND_M),
+             STRESS_TURN_JAX_CPU[1])):
+        c = load_config(overrides={"image_width": W, "image_height": H})
+        turn = SyntheticSequence(n_frames=n, width=W, height=H, trajectory=trajectory_turn(
+            n, speed=0.3, turn_start=20, turn_frames=15, turn_deg=60))
+        out = _stress_run(tag, c, turn.K, render(turn, n), turn.gt_positions(), bound, max_reb)
+        if out["health_end"] != 0:
+            out["faults"].append(f"{tag}: health {out['health_end']} at the end")
+        faults += out["faults"]
+        by_path["stress_" + tag] = (out["launches"], out["launches_floor"])
+    W, H = cfg.image_width, cfg.image_height
+    band = SyntheticSequence(n_frames=n, width=W, height=H, speed=0.3,
+                             textureless_span=(10.0, 18.0), occluder=True)
+    out = _stress_run("textureless_occluder", cfg, band.K, render(band, n), band.gt_positions(),
+                      jax_held_bound(STRESS_BAND_JAX_CPU[0], STRESS_BAND_FILE_BOUND_M),
+                      STRESS_BAND_JAX_CPU[1])
+    faults += out["faults"]
+    by_path["stress_textureless"] = (out["launches"], out["launches_floor"])
+    for tag, (W, H), bound, max_reb in (
+            ("arena_corner_416x160", STRESS_SMALL, STRESS_FILE_BOUND_M, 0),
+            ("arena_corner", full, jax_held_bound(STRESS_ARENA_JAX_CPU[0], STRESS_FILE_BOUND_M),
+             STRESS_ARENA_JAX_CPU[1])):
+        c = load_config(overrides={"image_width": W, "image_height": H})
+        arena = FastArenaRenderer(trajectory_loop(m, speed=0.3, straight_frames=25, turn_frames=30),
+                                  W, H, margin=6.0, device="cuda")
+        out = _stress_run(tag, c, arena.K, arena.frames_device(0, m).cpu().numpy(),
+                          arena.gt_positions(), bound, max_reb)
+        faults += out["faults"]
+        by_path["stress_" + tag] = (out["launches"], out["launches_floor"])
+    _say(f"[stress] phase seconds {time.perf_counter() - t_phase:.1f}")
+    if faults:
+        raise AssertionError("[stress] " + "; ".join(faults))
+    return by_path
+
+
+def longhorizon_phase(cfg) -> tuple[int, int]:
+    """``[longhorizon]``: ``LONGHORIZON_FRAMES`` frames of the corridor renderer through
+    the per-frame ``run`` (as ``tests/test_longhorizon.py``): late median inliers above 8
+    and above 0.3x the early median, promotions in the last 100 frames, ATE finite and
+    under 8 m; frames/s; the device's peak allocation after frame 100 and at the end
+    (fixed-capacity state: it must not grow). Returns the run's launches and their floor."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.data.render import FastCorridorRenderer
+    from lcvo_tpu_torch.metrics import ate_rmse
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+
+    n = LONGHORIZON_FRAMES
+    seq = FastCorridorRenderer(n, cfg.image_width, cfg.image_height, device="cuda")
+    frames = np.concatenate([seq.frames_device(s, min(s + 50, n)).cpu().numpy()
+                             for s in range(0, n, 50)])
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    inliers, promoted, peak = [], [], {}
+
+    def on_frame(i, res):
+        inliers.append(int(res.n_inliers))
+        promoted.append(int(res.n_promoted))
+        if i == 100 - cfg.bootstrap.frame_gap:   # the pose of frame 100
+            peak["after_frame_100"] = torch.cuda.max_memory_allocated() / 2**20
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = vo.run(iter(frames), n, on_frame=on_frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak["at_the_end"] = torch.cuda.max_memory_allocated() / 2**20
+    launches = kernels.LAUNCHES["extract_blocks"]
+    est = np.asarray(traj)
+    gap = cfg.bootstrap.frame_gap
+    gt = seq.gt_positions()[gap: gap + len(est)]
+    early, late = float(np.median(inliers[:50])), float(np.median(inliers[-50:]))
+    ate = ate_rmse(est[: len(gt)], gt[: len(est)])
+    floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
+    out = {"frames": n, "poses": len(est), "inliers_early_median": early,
+           "inliers_late_median": late, "promoted_last_100": int(sum(promoted[-100:])),
+           "ate_m": ate, "rebootstraps": vo.n_rebootstraps, "frames_per_s": n / wall,
+           "max_memory_allocated_mb": peak, "launches": launches, "launches_floor": floor}
+    _say("[longhorizon] " + json.dumps(out))
+    if not (late > 8 and late > 0.3 * early and out["promoted_last_100"] > 0):
+        raise AssertionError(f"[longhorizon] the track budget leaked: {out}")
+    if not (np.isfinite(ate) and ate < 8.0):
+        raise AssertionError(f"[longhorizon] ATE {ate} m")
+    if peak["at_the_end"] - peak["after_frame_100"] > LONGHORIZON_MEM_GROWTH_MB:
+        raise AssertionError(f"[longhorizon] the device's peak allocation grew after frame "
+                             f"100: {peak}")
+    if launches < floor:
+        raise AssertionError(f"[longhorizon] extract_blocks launched {launches} times, < {floor}")
+    return launches, floor
+
+
+def mode_overrides(mode: str) -> dict:
+    """``bench.py``'s mode names as config overrides (``<mode>+ba`` turns BA on)."""
+    if mode.endswith("+ba"):
+        return {"find_new_candidates_method": mode[: -len("+ba")], "ba": {"enabled": True}}
+    return {"find_new_candidates_method": mode}
+
+
+def replay_layout_phase(root: str, dataset: str, jax_ate: float) -> tuple[int, int]:
+    """``[replay:<dataset>]``: ``REPLAY_LAYOUT_FRAMES`` frames written by the dataset
+    tool on the card in that dataset's layout and size, replayed by the CLI with
+    ``--chunked`` and the default configuration, the launch and decoder counters at 0
+    before. Checks one pose per frame from the dataset's bootstrap gap on, pose_ok on
+    >= 90% of rows, ATE finite and under 8x the JAX CLI's figure on the same kind of
+    files rendered on the CPU, and which decoder read every frame: Malaga's JPEGs are
+    declined by the native decoder (counted) and read by PIL, parking's PNGs are all
+    decoded natively. Malaga's ground truth is its GPS log (positions only). Returns the
+    replay's launches and their floor."""
+    import shutil
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.config import load_config
+    from lcvo_tpu_torch.data import native_loader
+    from lcvo_tpu_torch.data.datasets import load_dataset
+
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import port_make_replay_dataset
+
+    tag = f"replay:{dataset}"
+    work = os.path.join(root, "chiprun_out", f"smoke_replay_{dataset}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    N = REPLAY_LAYOUT_FRAMES
+    try:
+        made = port_make_replay_dataset.make_dataset(dataset, frames=N,
+                                                     out=os.path.join(work, "data"), device="cuda")
+        ds = load_dataset(dataset, os.path.join(work, "data"))
+        gap = ds.bootstrap_pair[1]
+        out_dir = os.path.join(work, "run")
+        native_loader.reset_counts()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary, plots = _run_cli(["--dataset", dataset, "--data-root", os.path.join(work, "data"),
+                                   "--frames", str(N), "--chunked", "--out", out_dir], out_dir)
+        wall = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["extract_blocks"]
+        decoded = native_loader.counts()
+    finally:
+        shutil.rmtree(os.path.join(work, "data"), ignore_errors=True)
+    cfg = load_config(overrides={"bootstrap": {"frame_gap": gap}})
+    n_reb = summary["n_rebootstraps"]
+    skip = max(cfg.bootstrap.rebootstrap_skip, 1)
+    floor = _launch_floor(cfg, N - 1 - gap - (skip + 1) * n_reb, 1 + n_reb)
+    # the CLI looks at frame 0 once for the image size, then every frame once
+    want_decoder = ({"decoded": 0, "declined": N + 1} if dataset == "malaga"
+                    else {"decoded": N + 1, "declined": 0})
+    out = {"dataset": dataset, "size": [made["width"], made["height"]], "frames_on_disk": N,
+           "summary": summary, "plots": plots, "wall_s": wall, "jax_cpu_ate_m": jax_ate,
+           "ate_bound_m": 8 * jax_ate, "launches": launches, "launches_floor": floor,
+           "decoder_counts": decoded, "decoder_counts_expected": want_decoder,
+           "dataset_tool": made}
+    _say(f"[{tag}] " + json.dumps(out))
+    ate = summary.get("ate_rmse_m")
+    if (made["width"], made["height"]) != REPLAY_LAYOUT_SIZES[dataset]:
+        raise AssertionError(f"[{tag}] the tool wrote {made['width']}x{made['height']}, the "
+                             f"kernel phase checked {REPLAY_LAYOUT_SIZES[dataset]}")
+    if summary["frames"] != N - gap or summary["metric_rows"] != summary["frames"]:
+        raise AssertionError(f"[{tag}] {summary['frames']} poses ({summary['metric_rows']} rows) "
+                             f"for {N} frames at gap {gap}")
+    if summary["pose_ok_rate"] < POSE_OK_MIN:
+        raise AssertionError(f"[{tag}] pose_ok on {summary['pose_ok_rate']:.3f} of rows")
+    if not (isinstance(ate, float) and np.isfinite(ate) and ate < 8 * jax_ate):
+        raise AssertionError(f"[{tag}] ATE {ate} m, bound {8 * jax_ate} m")
+    if dataset == "malaga" and summary.get("gt_type") != "positions_only":
+        raise AssertionError(f"[{tag}] the GPS ground truth was not read: {summary}")
+    if decoded != want_decoder:
+        raise AssertionError(f"[{tag}] decoder counts {decoded}, expected {want_decoder}")
+    if launches < floor:
+        raise AssertionError(f"[{tag}] extract_blocks launched {launches} times, < {floor}")
+    return launches, floor
 
 
 def render_phase(smi: str) -> dict:
@@ -1717,7 +2282,12 @@ def main() -> int:
     for c in (ref_cfg, thr_cfg, turn_cfg):
         if (c.image_height, c.image_width) != (cfg.image_height, cfg.image_width):
             raise AssertionError("the main paths share their frames, so their image size")
-    row = kernel_phase(cfg, ref_cfg)
+    # the configurations whose KLT calls the paths below make: the main and mode paths
+    # share the default's (BA and the candidate method change no KLT call), the stress
+    # scenes run it at STRESS_SMALL and the layout replays at their datasets' sizes
+    sized = [load_config(overrides={"image_width": W, "image_height": H})
+             for (W, H) in (STRESS_SMALL, *REPLAY_LAYOUT_SIZES.values())]
+    row = kernel_phase(cfg, ref_cfg, [cfg, thr_cfg, turn_cfg, *sized])
 
     from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 
@@ -1740,6 +2310,7 @@ def main() -> int:
     # hops (6 launches each) and describes its last frame for the sift-sift table (6)
     by_path = {"default": main["launches"]["extract_blocks"],
                "reference": ref["launches"]["extract_blocks"]}
+    floors = {"default": main["min_launches"], "reference": ref["min_launches"]}
     poses = {}
     for tag, c, bound in (("throughput", thr_cfg, THR_ATE_BOUND_M),
                           ("turn_robust", turn_cfg, TURN_ATE_BOUND_M)):
@@ -1748,16 +2319,37 @@ def main() -> int:
                                           12 * (BA_FRAMES - 1 - gap) + 6 * gap + 6,
                                           args.profile, n_frames=BA_FRAMES)
         by_path[tag] = out["launches"]["extract_blocks"]
+        floors[tag] = out["min_launches"]
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
     checkpoint_phase("checkpoint:turn_robust", turn_cfg, seq, frames, BA_FRAMES,
                      poses["turn_robust"])
+    for mode, n_frames, jax_ate in MODES:
+        c = load_config(overrides=mode_overrides(mode))
+        out, _ = main_path_phase(f"main:{mode}", c, seq, frames, 8 * jax_ate,
+                                 _launch_floor(c, n_frames - 1 - c.bootstrap.frame_gap, 1),
+                                 args.profile, n_frames=n_frames)
+        path = mode.replace("-", "_").replace("+", "_")
+        by_path[path], floors[path] = out["launches"]["extract_blocks"], out["min_launches"]
+    counted = {**recovery_phase(cfg, turn_cfg, seq, frames), **stress_phase(cfg),
+               "longhorizon": longhorizon_phase(cfg)}
     render_phase(smi)
-    _, by_path["replay_kitti_turn"] = replay_phase(root, smi)
+    replay, by_path["replay_kitti_turn"] = replay_phase(root, smi)
+    floors["replay_kitti_turn"] = replay["launches_formula"]
+    for dataset, jax_ate in REPLAY_LAYOUT_JAX_CPU_ATE_M.items():
+        counted[f"replay_{dataset}"] = replay_layout_phase(root, dataset, jax_ate)
+    for path, (n, floor) in counted.items():
+        by_path[path], floors[path] = n, floor
     kernels.reset_launches()
     if min(by_path.values()) < 1:
         raise AssertionError(f"a main path never launched extract_blocks: {by_path}")
     row["launches"] = sum(by_path.values())
     row["launches_by_path"] = by_path
+    # the floors are worked out from the configurations and the re-bootstrap counts, not
+    # measured, so they have a line of their own, outside the kernel table
+    _say("[launch-floors] " + json.dumps(floors))
+    under = {p: (by_path[p], f) for p, f in floors.items() if by_path[p] < f}
+    if under:
+        raise AssertionError(f"extract_blocks launched under its floor on {under}")
     lrow = layered_kernel_phase(turn_cfg)
     st, run_max = streams_phase(turn_cfg, seq, frames, args.profile)
     dst = dist_phase(turn_cfg, seq, run_max)
@@ -1766,8 +2358,8 @@ def main() -> int:
     lrow["launches_by_path"][f"streams_mesh_S{max(STREAMS)}"] = dst["streams_mesh_launches"]
     lrow["launches_per_batched_step"] = st["launches_per_batched_step"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "sift_ms",
-            "sift_plain_ms", "sift_bound_ms", "sift_ypad_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path",
+            "sift_ms", "sift_plain_ms", "sift_bound_ms", "sift_ypad_ms")
     lkeys = keys[:12] + ("launches_per_batched_step", "ms_by_streams", "two_d_ms_one_stream")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys}]}))
     print(smi)

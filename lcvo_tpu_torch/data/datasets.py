@@ -26,13 +26,15 @@ import numpy as np
 
 def _imread_gray(path: str, dtype=np.uint8) -> np.ndarray:
     """Grayscale frame as uint8 by default: the device-side pipeline casts to
-    f32 after transfer, and 8-bit transfer quarters the host->device bytes."""
-    if path.endswith(".png"):
-        from lcvo_tpu_torch.data import native_loader
+    f32 after transfer, and 8-bit transfer quarters the host->device bytes. Every file
+    is offered to the native PNG decoder first, so a file it cannot read (a JPEG, a PNG
+    feature it lacks) is counted in ``native_loader.counts()["declined"]`` before PIL
+    reads it: no frame takes the PIL path unseen."""
+    from lcvo_tpu_torch.data import native_loader
 
-        out = native_loader.decode_png(path, dtype)
-        if out is not None:
-            return out
+    out = native_loader.decode_png(path, dtype)
+    if out is not None:
+        return out
     from PIL import Image
 
     with Image.open(path) as im:

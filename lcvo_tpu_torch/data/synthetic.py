@@ -285,3 +285,13 @@ class SyntheticSequence:
     def frames(self):
         for i in range(self.n_frames):
             yield self.frame(i)
+
+
+def noise_burst(frames: np.ndarray, start: int, stop: int, seed: int = 0) -> np.ndarray:
+    """A copy of ``frames`` (T, H, W) with frames ``start`` to ``stop - 1`` replaced by
+    uniform noise over [0, 255) from ``np.random.default_rng(seed)``, cast to the frames'
+    dtype: the corrupted-frame burst of the fault-injection scenarios."""
+    out = np.array(frames, copy=True)
+    rng = np.random.default_rng(seed)
+    out[start:stop] = rng.uniform(0, 255, size=out[start:stop].shape).astype(out.dtype)
+    return out

@@ -130,6 +130,30 @@ def _stack_gradients(stack: torch.Tensor):
     return gx, gy
 
 
+def _bilinear_stack(stack: torch.Tensor, li: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
+    """Bilinear sample a (L, H, W) stack at per-point layer ``li`` (N,) int and float
+    coords ys/xs (N, ...). One gather on the (L*H, W) view, no per-layer copies; the
+    sampling itself reads blocks (``_sample_blocks_nk``), this is the per-element form
+    the JAX package keeps beside it."""
+    L, H, W = stack.shape
+    flat = stack.reshape(L * H, W)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = ys - y0
+    wx = xs - x0
+    y0i = torch.clamp(y0.to(torch.int64), 0, H - 2)
+    x0i = torch.clamp(x0.to(torch.int64), 0, W - 2)
+    extra = ys.dim() - 1
+    row = li.to(torch.int64).reshape(li.shape + (1,) * extra) * H + y0i
+    Ia = flat[row, x0i]
+    Ib = flat[row, x0i + 1]
+    Ic = flat[row + 1, x0i]
+    Id = flat[row + 1, x0i + 1]
+    top = Ia * (1 - wx) + Ib * wx
+    bot = Ic * (1 - wx) + Id * wx
+    return top * (1 - wy) + bot * wy
+
+
 # ---------------------------------------------------------------------------
 # Detection (per octave): 3D extrema -> gates -> top-k
 # ---------------------------------------------------------------------------
@@ -304,6 +328,17 @@ def _extract_stack_blocks(g_st: torch.Tensor, li: torch.Tensor, xy: torch.Tensor
     flat, centers, (lf, p) = stack_centers(g_st, li, xy, S)
     blocks, orig = extract_blocks(flat, centers, S)
     return blocks, orig[:, 0], orig[:, 1] - lf - p
+
+
+def _interp_weights_nk(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """(N, K, S) two-tap bilinear weight rows for per-sample positions (N, K): the
+    JAX package's one-hot weights, which ``_sample_blocks_nk`` replaces by four reads."""
+    i0 = torch.floor(pos)
+    f = pos - i0
+    cols = torch.arange(S, dtype=pos.dtype, device=pos.device)
+    eq0 = (cols == i0[..., None]).to(pos.dtype)
+    eq1 = (cols == i0[..., None] + 1.0).to(pos.dtype)
+    return eq0 * (1 - f)[..., None] + eq1 * f[..., None]
 
 
 def _sample_blocks_nk(blocks_list, qx: torch.Tensor, qy: torch.Tensor, S: int):

@@ -3,8 +3,8 @@
 
 Structure-tensor score → 3x3 local-max suppression → per-grid-cell top-k → global
 top-``max_corners`` with a validity mask. Minimum distance to existing points is a
-batched distance test. ``torch.topk`` may order ties differently from ``lax.top_k``;
-the detected point *set* is what matches.
+batched distance test. Both top-k steps keep equal scores in index order, as
+``lax.top_k`` does, so equal scores give the JAX package's corners.
 """
 
 from __future__ import annotations
@@ -37,6 +37,15 @@ def _local_max(score: torch.Tensor) -> torch.Tensor:
     return score >= m
 
 
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of the last dim and their indices, equal values in
+    index order as ``lax.top_k`` gives them (``torch.topk`` leaves the order of ties
+    open, and a scene with tied corner scores, a checkerboard, then keeps other
+    corners than the JAX package)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def detect_corners(
     img: torch.Tensor,
     max_corners: int = 600,
@@ -67,7 +76,7 @@ def detect_corners(
     # out of place: a write into a fresh buffer is refused under torch.func.vmap
     padded = F.pad(masked, (0, cells_x * cw - W, 0, cells_y * ch - H), value=float("-inf"))
     cells = padded.reshape(cells_y, ch, cells_x, cw).permute(0, 2, 1, 3).reshape(cells_y, cells_x, ch * cw)
-    top_vals, top_idx = torch.topk(cells, cells_topk, dim=-1)  # (cy, cx, k)
+    top_vals, top_idx = _top_k(cells, cells_topk)  # (cy, cx, k)
 
     cy = torch.arange(cells_y, device=dev)[:, None, None]
     cx = torch.arange(cells_x, device=dev)[None, :, None]
@@ -79,7 +88,7 @@ def detect_corners(
     flat_x = px.reshape(-1).to(torch.float32)
 
     k = min(max_corners, flat_vals.shape[0])
-    sel_vals, sel = torch.topk(flat_vals, k)
+    sel_vals, sel = _top_k(flat_vals, k)
     pts = torch.stack([flat_x[sel], flat_y[sel]], dim=-1)
     max_score = torch.clamp(torch.max(sel_vals), min=1e-12)
     valid = torch.isfinite(sel_vals) & (sel_vals > quality_level * max_score)

@@ -650,6 +650,17 @@ class VisualOdometry:
         return self.state.R.cpu().numpy(), self.state.t.cpu().numpy()
 
     # -- chunked throughput mode -------------------------------------------
+    def make_chunk_step(self, chunk: int):
+        """The chunk step the host loop runs: :func:`make_chunk_fn` on this instance's
+        device, with BA refines counted into :meth:`ba_refine_stats`. Returns
+        ``chunk_fn(carry, frames (chunk, H, W), gen, frame_idx=None) -> (carry', (R
+        (chunk,3,3), t (chunk,3), pose_ok, n_inliers))``; the carry is
+        :meth:`chunk_carry`, ``frame_idx`` the host mirror ``self._frame_idx``, and the
+        caller hands the carry back with :meth:`set_chunk_carry`. ``chunk`` is kept for
+        the JAX package's signature: the step takes any number of frames."""
+        return make_chunk_fn(self.cfg, self.K, self.device,
+                             on_refine=self._note_refine if self.window is not None else None)
+
     def chunk_carry(self):
         """Carry for :func:`make_chunk_fn`'s step: the VO state, plus the BA window
         when BA is enabled."""
@@ -714,8 +725,7 @@ class VisualOdometry:
         those frames."""
         skip = max(self.cfg.bootstrap.rebootstrap_skip, 1)
         it = iter(frame_iter)
-        chunk_fn = make_chunk_fn(self.cfg, self.K, self.device,
-                                 on_refine=self._note_refine if self.window is not None else None)
+        chunk_fn = self.make_chunk_step(chunk)
         last_ckpt = produced
         lookahead: list = []   # frames pulled from the stream but not yet processed
         pulled = produced

@@ -212,6 +212,21 @@ def test_malaga_adapter(tmp_path):
     assert tdatasets._malaga_image_stamp("frame_0001.jpg") is None
 
 
+def test_jpeg_frames_are_counted_as_declined(tmp_path):
+    """A JPEG frame is offered to the native decoder, counted as declined, and read by
+    PIL: a replay of Malaga's JPEGs shows in ``native_loader.counts()`` which decoder
+    served it."""
+    rng = np.random.default_rng(1)
+    arr = rng.integers(0, 256, (30, 40), dtype=np.uint8)
+    path = str(tmp_path / "frame.jpg")
+    Image.fromarray(arr).save(path, quality=95)
+    native_loader.reset_counts()
+    got = tdatasets._imread_gray(path)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(got, np.asarray(im.convert("L")))
+    assert native_loader.counts() == {"decoded": 0, "declined": 1}
+
+
 def test_prefetcher_order(kitti_root):
     ds = kitti(kitti_root)
     got = list(Prefetcher(ds, start=2, depth=2))

@@ -196,3 +196,18 @@ def test_pyramidal_klt_matches_jax(rng, case):
         else:
             assert d.max() <= 1e-3
     assert tr.shape == (len(pts),)
+
+
+@pytest.mark.parametrize("shape,k", [((352,), 96), ((8, 11, 650), 4)])
+def test_top_k_keeps_ties_in_index_order_as_lax(shape, k):
+    """``ops/harris.py::_top_k`` on values with many exact ties (and -inf): the same
+    values and indices as ``lax.top_k``, which keeps equal values in index order."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 4, shape).astype(np.float32)
+    x[x < 1] = -np.inf
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    tv, ti = tharris._top_k(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

@@ -41,6 +41,16 @@ def small(**over):
     return load_config(overrides=ov), jload_config(overrides=ov)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Several test workers share the cores; PyTorch's own thread pool on top of them
+    oversubscribes the machine and slows these tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def seq():
     return SyntheticSequence(n_frames=40, width=320, height=128, speed=0.3)
@@ -174,6 +184,36 @@ def test_run_per_frame_cpu(seq, frames):
     _check_run(vo, seq, 14)
     assert seen == list(range(10))
     assert all(r.R.shape == (3, 3) for r in vo.results)
+
+
+@pytest.mark.parametrize("ba", [False, True], ids=["no_ba", "ba"])
+def test_make_chunk_step_equals_run_chunked(seq, frames, ba):
+    """``make_chunk_step`` is the host loop's chunk step: stepping it over two chunks of 6
+    from ``chunk_carry()``, with the host mirror as ``frame_idx`` and the carry handed
+    back by ``set_chunk_carry``, gives ``run_chunked``'s poses exactly (with BA: its
+    keyframes and refines too)."""
+    over = {"ba": {"enabled": True, "window": 4, "keyframe_every": 3, "gn_iters": 3}} if ba else {}
+    tcfg, _ = small(**over)
+    gap, chunk = tcfg.bootstrap.frame_gap, 6
+    n = gap + 1 + 2 * chunk
+    ref = VisualOdometry(tcfg, seq.K, device="cpu")
+    want = []
+    ref.run_chunked(frames[:n], chunk=chunk, on_chunk=lambda s, R, t, ok, ninl: want.append(
+        (R, t, ok)) if len(ok) == chunk else None)
+
+    vo = VisualOdometry(tcfg, seq.K, device="cpu")
+    vo.bootstrap(list(frames[: gap + 1]))
+    step = vo.make_chunk_step(chunk)
+    for c in range(2):
+        batch = torch.from_numpy(frames[gap + 1 + c * chunk: gap + 1 + (c + 1) * chunk])
+        carry, (Rs, ts, ok, _) = step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)
+        vo.set_chunk_carry(carry, chunk)
+        np.testing.assert_array_equal(Rs.numpy(), want[c][0])
+        np.testing.assert_array_equal(ts.numpy(), want[c][1])
+        np.testing.assert_array_equal(ok.numpy(), want[c][2])
+    assert ref.n_rebootstraps == 0 and vo._frame_idx == ref._frame_idx == 2 * chunk
+    assert (vo.n_keyframes, vo.ba_refine_stats()) == (ref.n_keyframes, ref.ba_refine_stats())
+    assert vo.n_keyframes == (4 if ba else 0)
 
 
 def test_run_chunked_recovers_by_rebootstrap(seq, frames):

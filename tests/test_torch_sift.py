@@ -237,6 +237,33 @@ def test_extract_stack_blocks_on_detected_keypoints_exact(carried):
         np.testing.assert_array_equal(toy.numpy(), c["oy"])
 
 
+@pytest.mark.parametrize("extra", [(), (6,), (4, 5)], ids=["points", "rows", "grids"])
+def test_bilinear_stack_matches_jax(rng, extra):
+    """Per-point layer and float coordinates (past every border too) on one gather of
+    the flattened stack: the same samples as the JAX package, to 1e-6."""
+    L, H, W, N = 5, 23, 31, 12
+    st = rng.random((L, H, W)).astype(np.float32)
+    li = rng.integers(0, L, N).astype(np.int32)
+    ys = rng.uniform(-2, H + 1, (N,) + extra).astype(np.float32)
+    xs = rng.uniform(-2, W + 1, (N,) + extra).astype(np.float32)
+    j = jsift._bilinear_stack(jnp.asarray(st), jnp.asarray(li), jnp.asarray(ys), jnp.asarray(xs))
+    t = tsift._bilinear_stack(T(st), T(li), T(ys), T(xs))
+    assert t.shape == j.shape
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6)
+
+
+def test_interp_weights_nk_matches_jax(rng):
+    """Two-tap weight rows at positions inside the block, on integers and at the last
+    column (where the second tap falls off the row): exact."""
+    N, K, S = 7, 30, 17
+    pos = rng.uniform(0, S - 1.001, (N, K)).astype(np.float32)
+    pos[0, :5] = [0.0, 3.0, 8.0, S - 1.001, S - 1.0]
+    j = jsift._interp_weights_nk(jnp.asarray(pos), S)
+    t = tsift._interp_weights_nk(T(pos), S)
+    assert t.shape == (N, K, S)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-7)
+
+
 def test_sample_blocks_equals_the_weight_products(rng):
     """The port reads four pixels per sample; the JAX package multiplies by two-tap
     weight rows. Same bilinear value (<= 1e-6), with positions past the block edge
