@@ -54,8 +54,22 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    with its keyframe steps. After each, the same file with ``ba.enabled`` off runs the
    same frames (``[main:<name>:ba_off]``: frames/s and ATE beside the BA run's).
    With ``--profile DIR``, one more chunk of each path runs under ``torch.profiler``
-   afterwards (stage spans, ``lcvo.ba`` per keyframe, device busy share, top kernels;
-   summaries to DIR).
+   afterwards, eager (stage spans, ``lcvo.ba`` per keyframe, device busy share, top
+   kernels), then one replayed chunk (device busy, idle share, ops per frame); summaries
+   to DIR.
+   Every path of this script runs as ``VisualOdometry`` runs on the card: its per-frame
+   and keyframe steps captured into CUDA graphs at their first call and replayed
+   (``lcvo_tpu_torch/utils/graphs.py``), the launch counters counting each replay's
+   launches. ``[graphs:<path>]`` (after the four paths): each path once more with every
+   step eager (``disable_graphs()``) from the same seed, held equal to the graphed run bit
+   for bit (poses, pose_ok, inliers, launches, every tensor of the final state and
+   window), with frames/s and ``step`` latency graphed and eager, graphs captured, warm-up
+   and capture plus instantiation seconds, nodes, pool bytes and the host time of one
+   replay; ``[graphs:run]`` the same for the default configuration through ``run``; then a
+   replayed chunk of the default and of ``turn_robust`` (with keyframe replays) under the
+   sync detector. The streams, recovery and checkpoint phases below also run graphed:
+   each S of ``[streams]`` and each recovery run is held to its eager twin (streams:
+   equal exactly; recovery: the same re-bootstraps and anchors).
 5. Checkpoint, on the card: ``configs/turn_robust.yaml`` runs to a chunk boundary with
    ``checkpoint_every``, a fresh ``VisualOdometry`` resumes from the file and continues,
    and its trajectory must equal path d's exactly. Prints the file's size and the save
@@ -159,6 +173,7 @@ The script imports neither JAX nor ``lcvo_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -724,17 +739,63 @@ def ba_checks(tag: str, vo, frames, n_frames: int) -> dict:
     return got
 
 
+def _bits(tree) -> list:
+    """Every tensor of a tree as its bytes on the host (None kept): equal lists are
+    equal bit for bit, NaN included."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    return [None if x is None else x.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+            for x in tree_flatten(tree)[0]]
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all((x is None and y is None) or (
+        x is not None and y is not None and np.array_equal(x, y)) for x, y in zip(a, b))
+
+
+def _replay_host_ms(vo, frames) -> dict:
+    """Host time of one replay of the compiled per-frame step (the wrapper's copies and
+    clones, the generator's prologue and the graph launch, frames already on the card),
+    over ``len(frames)`` back-to-back calls that nothing waits for, beside the time per
+    call once the card has finished them; with BA the same for the keyframe step. The
+    replays move ``vo.state`` and not the host's mirror of it, so this runs last on a
+    ``vo``."""
+    import torch
+
+    imgs = [torch.from_numpy(f).to(vo.device) for f in frames]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for im in imgs:
+        vo.state, _ = vo._process(vo.state, im, vo._gen)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = {"process_frame_host_ms_per_replay": host / len(imgs) * 1e3,
+           "process_frame_ms_per_replay_done": (time.perf_counter() - t0) / len(imgs) * 1e3}
+    if vo.window is not None:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            (vo.state, vo.window), _ = vo._ba((vo.state, vo.window))
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["ba_step_host_ms_per_replay"] = host / 4 * 1e3
+        out["ba_step_ms_per_replay_done"] = (time.perf_counter() - t0) / 4 * 1e3
+    return out
+
+
 def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: int,
                     profile_dir: str | None = None, n_frames: int = N_FRAMES):
     """Drive one configuration through ``run_chunked`` on the first ``n_frames`` rendered
-    frames, with the launch counters set to 0 just before and read just after, and check
-    what came out. ``min_launches``: the fewest ``extract_blocks`` launches the run must
-    have made. Returns the printed summary and the run's (4, 4) poses."""
+    frames (its steps replayed as CUDA graphs), with the launch counters set to 0 just
+    before and read just after, and check what came out. ``min_launches``: the fewest
+    ``extract_blocks`` launches the run must have made. Returns the printed summary, the
+    run's (4, 4) poses and what ``graphs_phase`` holds the eager run to."""
     import torch
 
     from lcvo_tpu_torch import kernels
     from lcvo_tpu_torch.metrics import ate_rmse
     from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     vo = VisualOdometry(cfg, seq.K, device="cuda")
     marks: list[tuple[float, int]] = []
@@ -751,6 +812,9 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    run = {"poses": np.asarray(vo.poses), "pose_ok": list(vo.pose_ok_flags),
+           "inliers": list(inliers), "state": _bits(vo.chunk_carry()), "launches": launches,
+           "rebootstraps": vo.n_rebootstraps, "graphs": vo.graph_stats()}
 
     gap = cfg.bootstrap.frame_gap
     est = np.asarray(traj)
@@ -773,20 +837,30 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     steady_fps = CHUNK * (len(chunk_ends) - 1) / (chunk_ends[-1] - chunk_ends[0])
     bootstrap_first_s = marks[0][0] - t0   # with every first-call cost of the process
 
-    # no host round trip inside the step: every call that synchronises is listed
+    # no host round trip inside the step: every call that synchronises is listed (the
+    # eager step, which is where one would be; the graphs' replays are checked in a
+    # whole chunk by graphs_phase)
     img = torch.from_numpy(frames[n_frames]).to("cuda")
-    syncs = _host_syncs(lambda: vo._process(vo.state, img, vo._gen))
+    with disable_graphs():
+        syncs = _host_syncs(lambda: vo._process(vo.state, img, vo._gen))
     if syncs:
         raise AssertionError(f"[{tag}] process_frame waits for the device at {syncs}")
     _say(f"[{tag}] process_frame under torch.cuda.set_sync_debug_mode('warn'): no host sync")
     ba = ba_checks(tag, vo, frames, n_frames) if cfg.ba.enabled else None
 
-    lat = []
+    # step latency, graphed, then eager on the frames after those
+    lat, lat_eager = [], []
     for f in frames[n_frames: n_frames + N_LATENCY]:
         t1 = time.perf_counter()
         res = vo.step(f)
         res.R.cpu()
         lat.append((time.perf_counter() - t1) * 1e3)
+    with disable_graphs():
+        for f in frames[n_frames + N_LATENCY: n_frames + 2 * N_LATENCY]:
+            t1 = time.perf_counter()
+            res = vo.step(f)
+            res.R.cpu()
+            lat_eager.append((time.perf_counter() - t1) * 1e3)
 
     # the bootstrap once more, warm, on a fresh VisualOdometry (it ends with a read-back)
     vo_b = VisualOdometry(cfg, seq.K, device="cuda")
@@ -801,17 +875,23 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
         "pose_ok_rate": ok_rate, "bootstrap_inliers": inliers[0], "min_pnp_inliers": min(inliers[1:]),
         "ate_m": ate, "ate_bound_m": ate_bound, "wall_s": wall, "steady_fps": steady_fps,
         "chunk_ms_per_frame": 1e3 / steady_fps, "step_latency_ms_median": statistics.median(lat),
-        "step_latency_ms": lat, "launches": launches, "min_launches": min_launches,
+        "step_latency_ms": lat, "step_latency_ms_median_eager": statistics.median(lat_eager),
+        "launches": launches, "min_launches": min_launches,
         "rebootstraps": vo.n_rebootstraps, "bootstrap_first_s": bootstrap_first_s,
         "bootstrap_warm_s": bootstrap_warm_s,
     }
     if ba is not None:
         out["ba"] = ba
     _say(f"[{tag}] " + json.dumps(out))
+    run["steady_fps"] = steady_fps
+    run["step_latency_ms_median"] = out["step_latency_ms_median"]
+    run["step_latency_ms_median_eager"] = out["step_latency_ms_median_eager"]
     if profile_dir:
         profile_chunk(vo, frames[n_frames - CHUNK: n_frames], profile_dir,
                       tag.replace(":", "_") + "_profile.json")
-    return out, poses
+    # last: the replays below leave the host mirror of frame_idx behind the state
+    run["replay"] = _replay_host_ms(vo, frames[n_frames: n_frames + CHUNK])
+    return out, poses, run
 
 
 def rate_without_ba(tag: str, cfg, seq, frames, n_frames: int) -> dict:
@@ -841,6 +921,123 @@ def rate_without_ba(tag: str, cfg, seq, frames, n_frames: int) -> dict:
            "pose_ok_rate": float(np.mean(vo.pose_ok_flags)), "rebootstraps": vo.n_rebootstraps}
     _say(f"[{tag}] " + json.dumps(out))
     return out
+
+
+def _graph_summary(stats: dict) -> dict:
+    """What ``VisualOdometry.graph_stats()`` says, summed per path: graphs captured,
+    warm-up and capture plus instantiation seconds, nodes per graph, pool bytes."""
+    g = stats["graphs"]
+    return {"graphs_captured": len(g), "graphs": [x["name"] for x in g],
+            "warmup_s": sum(x["warmup_s"] for x in g),
+            "capture_plus_instantiate_s": sum(x["capture_s"] + x["instantiate_s"] for x in g),
+            "nodes": [x["nodes"] for x in g], "pool_bytes": stats["pool_bytes"]}
+
+
+def graphs_phase(tag: str, cfg, seq, frames, n_frames: int, graphed: dict) -> dict:
+    """``[graphs:<tag>]``: the run of ``main_path_phase`` once more with every step
+    eager (``disable_graphs()``), from the same seed on the same frames, held equal to
+    the graphed run exactly: poses, pose_ok, PnP inliers, launches and every tensor of
+    the final state (and window). Prints frames/s and step latency graphed and eager
+    side by side, the graphs captured, their capture time, nodes and pool bytes, and the
+    host time of one replay."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    inliers, ends = [], []
+
+    def on_chunk(start, Rs, ts, ok, ninl):
+        inliers.extend(int(n) for n in ninl)
+        if len(ok) == CHUNK:
+            ends.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with disable_graphs():
+        vo.run_chunked(frames[:n_frames], chunk=CHUNK, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    eager = {"poses": np.asarray(vo.poses), "pose_ok": list(vo.pose_ok_flags),
+             "inliers": inliers, "state": _bits(vo.chunk_carry()),
+             "launches": dict(kernels.LAUNCHES), "rebootstraps": vo.n_rebootstraps}
+    equal = {k: (np.array_equal(graphed[k], eager[k]) if k == "poses" else
+                 _same_bits(graphed[k], eager[k]) if k == "state" else graphed[k] == eager[k])
+             for k in ("poses", "pose_ok", "inliers", "state", "launches", "rebootstraps")}
+    fps_eager = CHUNK * (len(ends) - 1) / (ends[-1] - ends[0])
+    out = {"path": tag, "frames": n_frames, "graphed_equals_eager": equal,
+           "fps_graphed": graphed["steady_fps"], "fps_eager": fps_eager,
+           "fps_ratio": graphed["steady_fps"] / fps_eager,
+           "step_latency_ms_median_graphed": graphed["step_latency_ms_median"],
+           "step_latency_ms_median_eager": graphed["step_latency_ms_median_eager"],
+           **_graph_summary(graphed["graphs"]), **graphed["replay"],
+           "launches": graphed["launches"]}
+    _say(f"[graphs:{tag}] " + json.dumps(out))
+    if not all(equal.values()):
+        raise AssertionError(f"[graphs:{tag}] the graphed run left the eager run: {equal}")
+    return out
+
+
+def graphs_run_phase(cfg, seq, frames) -> dict:
+    """``[graphs:run]``: the per-frame loop (``run``) of the default configuration on
+    the main paths' frames, graphed and under ``disable_graphs()``: poses, pose_ok, every
+    ``FrameResult`` and the final state equal exactly; frames/s of both."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    got = {}
+    for name in ("graphed", "eager"):
+        vo = VisualOdometry(cfg, seq.K, device="cuda")
+        stamps = []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with disable_graphs() if name == "eager" else contextlib.nullcontext():
+            vo.run(iter(frames[:N_FRAMES]), N_FRAMES,
+                   on_frame=lambda i, res: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        # frames/s over the steps after the first ten (first-call costs left out)
+        got[name] = {"poses": np.asarray(vo.poses), "pose_ok": list(vo.pose_ok_flags),
+                     "results": _bits(vo.results), "state": _bits(vo.state),
+                     "launches": dict(kernels.LAUNCHES),
+                     "fps": (len(stamps) - 11) / (stamps[-1] - stamps[10])}
+    g, e = got["graphed"], got["eager"]
+    equal = {"poses": np.array_equal(g["poses"], e["poses"]), "pose_ok": g["pose_ok"] == e["pose_ok"],
+             "results": _same_bits(g["results"], e["results"]),
+             "state": _same_bits(g["state"], e["state"]), "launches": g["launches"] == e["launches"]}
+    out = {"path": "default:run", "frames": N_FRAMES, "graphed_equals_eager": equal,
+           "fps_graphed": g["fps"], "fps_eager": e["fps"], "launches": g["launches"]}
+    _say("[graphs:run] " + json.dumps(out))
+    if not all(equal.values()):
+        raise AssertionError(f"[graphs:run] the graphed run left the eager run: {equal}")
+    return out
+
+
+def graphed_chunk_syncs(tag: str, cfg, seq, frames, n_frames: int) -> None:
+    """No host sync inside a replayed chunk: a warm host loop (its graphs captured by
+    the chunks before) runs one more chunk of 16 through ``make_chunk_step`` (with BA,
+    its keyframe replays too) under ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import torch
+
+    from lcvo_tpu_torch.pipeline import VisualOdometry, keyframes_in
+
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    vo.run_chunked(frames[:n_frames - 3], chunk=CHUNK)
+    step = vo.make_chunk_step(CHUNK)
+    batch = torch.from_numpy(frames[n_frames: n_frames + CHUNK]).to(vo.device)
+    kf = keyframes_in(vo._frame_idx, CHUNK, cfg.ba.keyframe_every) if cfg.ba.enabled else 0
+    captures = sum(x.captures() for x in (vo._process, vo._ba) if x is not None)
+    syncs = _host_syncs(lambda: vo.set_chunk_carry(
+        step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)[0], CHUNK))
+    if sum(x.captures() for x in (vo._process, vo._ba) if x is not None) != captures:
+        raise AssertionError(f"[graphs:{tag}] the chunk under the sync detector captured anew")
+    if syncs:
+        raise AssertionError(f"[graphs:{tag}] a replayed chunk waits for the device at {syncs}")
+    _say(f"[graphs:{tag}] a replayed chunk of {CHUNK} frames with {kf} keyframe replay(s) "
+         f"under torch.cuda.set_sync_debug_mode('warn'): no host sync")
 
 
 def checkpoint_phase(tag: str, cfg, seq, frames, n_frames: int, want_poses) -> dict:
@@ -919,12 +1116,50 @@ def _scale_seam(est: np.ndarray, flags=None, pre_stop: int | None = None) -> flo
     return float(np.median(post) / np.median(pre))
 
 
+def _watched(vo, tag: str) -> tuple[list, list]:
+    """Wrap ``vo.bootstrap``: returns the lists it fills, the steps since the previous
+    bootstrap and each bootstrap's anchor (R0, t0; None for the first), and checks that
+    every bootstrap leaves the mirror at 0 and an empty window."""
+    segments, anchors = [], []
+    boot = vo.bootstrap
+
+    def watched_bootstrap(*a, **k):     # steps since the previous bootstrap, and after it
+        segments.append(vo._frame_idx)
+        anchors.append(None if k.get("R0") is None else
+                       np.concatenate([np.ravel(k["R0"]), np.ravel(k["t0"])]))
+        out = boot(*a, **k)
+        if vo.window is not None and (vo._frame_idx or bool(vo.window.kf_valid.any())):
+            raise AssertionError(f"[{tag}] a bootstrap left frame_idx {vo._frame_idx} or a "
+                                 f"keyframe in the window")
+        return out
+
+    vo.bootstrap = watched_bootstrap
+    return segments, anchors
+
+
+def _recovery_eager(cfg, seq, frames, chunked: bool) -> dict:
+    """The recovery run with every step eager (``disable_graphs()``): re-bootstraps,
+    anchors and poses, which the graphed run must repeat."""
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    _, anchors = _watched(vo, "recovery:eager")
+    with disable_graphs():
+        if chunked:
+            vo.run_chunked(frames, chunk=CHUNK)
+        else:
+            vo.run(iter(frames), len(frames))
+    return {"rebootstraps": vo.n_rebootstraps, "anchors": anchors, "poses": np.asarray(vo.poses)}
+
+
 def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tuple:
     """One recovery run on the card: counters at 0 before, read after; one pose per
     frame from ``frame_gap`` on, at least one re-bootstrap and no more than the JAX
     package's ``jax = (ATE, re-bootstraps)`` on the same frames, ``health`` 0 at the end
     and the last 8 poses good, ATE under ``jax_held_bound``, the scale seam inside
-    ``SCALE_SEAM`` and launches at or above the floor."""
+    ``SCALE_SEAM`` and launches at or above the floor. Through the graphs: the same
+    re-bootstraps, anchors and poses, bit for bit, as the eager run of the same frames."""
     import torch
 
     from lcvo_tpu_torch import kernels
@@ -934,18 +1169,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
     n = len(frames)
     gap, skip = cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
     vo = VisualOdometry(cfg, seq.K, device="cuda")
-    segments = []
-    boot = vo.bootstrap
-
-    def watched_bootstrap(*a, **k):     # steps since the previous bootstrap, and after it
-        segments.append(vo._frame_idx)
-        out = boot(*a, **k)
-        if vo.window is not None and (vo._frame_idx or bool(vo.window.kf_valid.any())):
-            raise AssertionError(f"[{tag}] a bootstrap left frame_idx {vo._frame_idx} or a "
-                                 f"keyframe in the window")
-        return out
-
-    vo.bootstrap = watched_bootstrap
+    segments, anchors = _watched(vo, tag)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -978,7 +1202,19 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
            "ate_m": ate, "ate_bound_m": bound, "jax_cpu_ate_m": jax_ate,
            "jax_cpu_rebootstraps": jax_reb, "scale_seam": seam, "launches": launches, "launches_floor": floor,
            "steps_per_segment": segments, "wall_s": wall}
+    eager = _recovery_eager(cfg, seq, frames, chunked)
+    same_anchors = len(anchors) == len(eager["anchors"]) and all(
+        (a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
+        for a, b in zip(anchors, eager["anchors"]))
+    out["graphed_vs_eager"] = {"rebootstraps_eager": eager["rebootstraps"],
+                               "anchors_equal": same_anchors,
+                               "poses_equal": bool(np.array_equal(np.asarray(vo.poses),
+                                                                  eager["poses"]))}
     _say(f"[{tag}] " + json.dumps(out))
+    if (n_reb != eager["rebootstraps"] or not same_anchors
+            or not out["graphed_vs_eager"]["poses_equal"]):
+        raise AssertionError(f"[{tag}] the graphed run differs from the eager one: "
+                             f"{out['graphed_vs_eager']}")
     if est.shape != (n - gap, 3) or not np.all(np.isfinite(est)):
         raise AssertionError(f"[{tag}] trajectory shape {est.shape} or non-finite entries")
     if n_reb < 1 or out["health_end"] != 0 or not out["last_8_pose_ok"]:
@@ -1014,8 +1250,8 @@ def recovery_phase(cfg, turn_cfg, seq, clean) -> dict:
     by_path = {}
     vo, out = _recovery_run("recovery", cfg, seq, frames, RECOVERY_JAX_CPU, chunked=True)
     by_path["recovery"] = (out["launches"], out["launches_floor"])
-    # a chunk of the burst and the frames around it, from the state the run ended in;
-    # the carry is not kept and the generator is put back
+    # a chunk of the burst and the frames around it, from the state the run ended in,
+    # replayed (the graphs are warm); the generator is put back
     lo = cfg.bootstrap.frame_gap + 1 + CHUNK
     batch = torch.from_numpy(frames[lo: lo + CHUNK]).to("cuda")
     step = vo.make_chunk_step(CHUNK)
@@ -1633,26 +1869,42 @@ def _profile_summary(prof, wall_us: float, n: int):
 
 
 def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
-    """One more chunk of the main path under ``torch.profiler``: host and device span
-    of each ``lcvo.*`` stage, device busy share, launches and the kernels with the
-    most device time. Writes the summary to ``out_dir``. The profiler's own cost
-    inflates the wall time; the shares are what it is for."""
+    """One more chunk of the main path under ``torch.profiler``, eager
+    (``disable_graphs()``: a replay records no stage spans): host and device span of
+    each ``lcvo.*`` stage, device busy share, launches and the kernels with the most
+    device time. Then one chunk of the replayed graphs: device busy, idle share and
+    device ops per frame (``graphed``). Writes the summary to ``out_dir``. The
+    profiler's own cost inflates the wall time; the shares are what it is for."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lcvo_tpu_torch.pipeline import make_chunk_fn
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
 
-    chunk_fn = make_chunk_fn(vo.cfg, vo.K, vo.device)
+    chunk_fn = vo.make_chunk_step(CHUNK)
     batch = torch.from_numpy(frames).to(vo.device)
     n = frames.shape[0]
-    carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)   # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry, outs = chunk_fn(carry, batch, vo._gen, frame_idx=vo._frame_idx + n)
+    with disable_graphs():     # eager: the carry is not donated, the state stays
+        carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)   # warm
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, outs = chunk_fn(carry, batch, vo._gen, frame_idx=vo._frame_idx + n)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     summary, dev_events, kern, stages = _profile_summary(prof, wall_us, n)
+    # the graphed chunk, its graphs captured by the run before
+    vo.set_chunk_carry(chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)[0], n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+        t0 = time.perf_counter()
+        carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)
+        torch.cuda.synchronize()
+        gwall_us = (time.perf_counter() - t0) * 1e6
+    vo.set_chunk_carry(carry, n)
+    graphed, _, _, _ = _profile_summary(gprof, gwall_us, n)
+    summary["graphed"] = {k: graphed[k] for k in (
+        "wall_ms_per_frame", "device_busy_ms_per_frame", "device_idle_share",
+        "device_ops_per_frame", "top_kernels_ms_per_frame")}
     # the keyframe step: host and device span of one lcvo.ba, and the device ops that
     # start inside its device-side span
     ba_dev = [(e.time_range.start, e.time_range.end) for e in dev_events if e.name == "lcvo.ba"]
@@ -1669,8 +1921,10 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
     with open(os.path.join(out_dir, fname), "w") as fh:
         json.dump(summary, fh, indent=1)
     # the headline numbers on one short line; the top kernels only in the file
-    _say(f"[profile] {fname} " + json.dumps({k: v for k, v in summary.items()
-                                             if k != "top_kernels_ms_per_frame"}))
+    line = {k: v for k, v in summary.items() if k != "top_kernels_ms_per_frame"}
+    line["graphed"] = {k: v for k, v in summary["graphed"].items()
+                       if k != "top_kernels_ms_per_frame"}
+    _say(f"[profile] {fname} " + json.dumps(line))
 
 
 def _layered_bound_bytes(img, centers, layer, S: int, pad: int) -> int:
@@ -1842,6 +2096,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
     from lcvo_tpu_torch.metrics import ate_rmse
     from lcvo_tpu_torch.parallel import streams as ps
     from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     dev = torch.device("cuda")
     gap = cfg.bootstrap.frame_gap
@@ -1858,22 +2113,40 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
     out = {"config": "turn_robust", "seed": cfg.seed, "frames_per_stream": gap + 1 + n_chunks * CHUNK,
            "chunk": CHUNK, "by_streams": {}}
     launches_per_step = {}
-    for S in STREAMS:
+
+    def chunks(S, graphed: bool):
+        """The n_chunks chunks at S streams from the stacked bootstraps, the generator at
+        ``cfg.seed``: per-chunk poses, pose_ok and inliers on the host, chunk end times,
+        the final carry."""
         carry = ps.stack_streams([vo.chunk_carry() for vo in vos[:S]])
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed)
-        Rs, ts, oks, ends = [], [], [], []
+        Rs, ts, oks, ninls, ends = [], [], [], [], []
         torch.cuda.synchronize()
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            for k in range(n_chunks):
+                fr = batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1)
+                carry, (R, t, ok, ninl) = step(carry, fr, gen, frame_idx=k * CHUNK)
+                packed = torch.cat([R.reshape(S, CHUNK, 9), t, ok[..., None].float(),
+                                    ninl[..., None].float()], -1).cpu().numpy()
+                ends.append(time.perf_counter())
+                Rs.append(packed[..., :9].reshape(S, CHUNK, 3, 3))
+                ts.append(packed[..., 9:12])
+                oks.append(packed[..., 12] > 0.5)
+                ninls.append(packed[..., 13])
+        return Rs, ts, oks, ninls, ends, carry, gen
+
+    for S in STREAMS:
         kernels.reset_launches()
-        for k in range(n_chunks):
-            fr = batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1)
-            carry, (R, t, ok, _) = step(carry, fr, gen, frame_idx=k * CHUNK)
-            packed = torch.cat([R.reshape(S, CHUNK, 9), t, ok[..., None].float()], -1).cpu().numpy()
-            ends.append(time.perf_counter())
-            Rs.append(packed[..., :9].reshape(S, CHUNK, 3, 3))
-            ts.append(packed[..., 9:12])
-            oks.append(packed[..., 12] > 0.5)
+        Rs, ts, oks, ninls, ends, carry, gen = chunks(S, graphed=True)
         launches = dict(kernels.LAUNCHES)
+        final = _bits(carry)
+        eRs, ets, eoks, eninls, eends, ecarry, _ = chunks(S, graphed=False)
+        graph_eq = (all(np.array_equal(a, b) for x, y in ((Rs, eRs), (ts, ets), (oks, eoks),
+                                                           (ninls, eninls))
+                        for a, b in zip(x, y))
+                    and _same_bits(final, _bits(ecarry)))
+        del ecarry
         if launches["extract_blocks_layered"] < 1 or launches["extract_blocks"] != 0:
             raise AssertionError(f"[streams] S={S}: launches {launches}: the batched path must "
                                  f"go through the layered entry only")
@@ -1888,9 +2161,13 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                        "t": np.concatenate(ts, 1), "pose_ok": np.concatenate(oks, 1)}
         row = {"aggregate_fps": S * CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
                "fps_per_stream": CHUNK * (n_chunks - 1) / (ends[-1] - ends[0]),
+               "aggregate_fps_eager": S * CHUNK * (n_chunks - 1) / (eends[-1] - eends[0]),
+               "graphed_equals_eager": graph_eq,
                "launches": launches["extract_blocks_layered"],
                "launches_per_batched_step": launches_per_step[S],
                "ate_m": ates, "pose_ok_rate": ok_rate.tolist()}
+        if not graph_eq:
+            raise AssertionError(f"[streams] S={S}: the graphed chunks left the eager ones: {row}")
         bad = [s for s in range(S) if not (np.all(np.isfinite(centers[s])) and ates[s] < TURN_ATE_BOUND_M
                                           and ok_rate[s] >= POSE_OK_MIN)]
         if bad:
@@ -1906,19 +2183,23 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                 raise AssertionError(f"[streams] S={S}: the batched chunk waits for the device at {syncs}")
             row["host_syncs_in_a_chunk_with_keyframes"] = 0
             if profile_dir:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0p = time.perf_counter()
-                    step(carry, nxt, gen, frame_idx=fidx)
+                # the replayed chunk, then the same chunk eager (stage spans, ops)
+                for name, ctx in (("profile", contextlib.nullcontext),
+                                  ("profile_eager", disable_graphs)):
                     torch.cuda.synchronize()
-                    wall_us = (time.perf_counter() - t0p) * 1e6
-                summary, _, _, _ = _profile_summary(prof, wall_us, CHUNK)
-                summary["device_ops_per_frame_per_stream"] = summary["device_ops_per_frame"] / S
-                os.makedirs(profile_dir, exist_ok=True)
-                with open(os.path.join(profile_dir, f"streams_S{S}_profile.json"), "w") as fh:
-                    json.dump(summary, fh, indent=1)
-                row["profile"] = {k: v for k, v in summary.items()
-                                  if k not in ("top_kernels_ms_per_frame", "stage_span_ms_per_frame")}
+                    with ctx(), profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+                        t0p = time.perf_counter()
+                        step(carry, nxt, gen, frame_idx=fidx)
+                        torch.cuda.synchronize()
+                        wall_us = (time.perf_counter() - t0p) * 1e6
+                    summary, _, _, _ = _profile_summary(prof, wall_us, CHUNK)
+                    summary["device_ops_per_frame_per_stream"] = summary["device_ops_per_frame"] / S
+                    os.makedirs(profile_dir, exist_ok=True)
+                    with open(os.path.join(profile_dir, f"streams_S{S}_{name}.json"), "w") as fh:
+                        json.dump(summary, fh, indent=1)
+                    row[name] = {k: v for k, v in summary.items()
+                                 if k not in ("top_kernels_ms_per_frame", "stage_span_ms_per_frame")}
         out["by_streams"][str(S)] = row
         _say(f"[streams] S={S} " + json.dumps(row))
     if len(set(launches_per_step.values())) != 1:
@@ -2261,6 +2542,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lcvo_tpu_torch import kernels
     from lcvo_tpu_torch.config import load_config
@@ -2298,14 +2580,15 @@ def main() -> int:
     frames = render(seq, n_render)
     _say(f"[main] rendered {len(frames)} frames {frames.shape[1:]} uint8 in "
          f"{time.perf_counter() - t0:.1f} s")
+    runs = {}      # each main path's graphed run, for [graphs]
     # default path: every frame pair goes through the tracker (6 launches), bootstrap
     # hops included. Reference path: 6 KLT + 6 SIFT launches per step, and the SIFT
     # bootstrap describes its two endpoint frames (12 launches, no KLT hops).
-    main, _ = main_path_phase("main", cfg, seq, frames, ATE_BOUND_M, 6 * (N_FRAMES - 1),
-                              args.profile)
+    main, _, runs["default"] = main_path_phase("main", cfg, seq, frames, ATE_BOUND_M,
+                                               6 * (N_FRAMES - 1), args.profile)
     n_steps = N_FRAMES - 1 - ref_cfg.bootstrap.frame_gap
-    ref, _ = main_path_phase("main:reference", ref_cfg, seq, frames, REF_ATE_BOUND_M,
-                             12 * n_steps + 12, args.profile)
+    ref, _, runs["reference"] = main_path_phase("main:reference", ref_cfg, seq, frames,
+                                                REF_ATE_BOUND_M, 12 * n_steps + 12, args.profile)
     # BA paths: 6 KLT + 6 SIFT launches per step; the KLT bootstrap tracks frame_gap
     # hops (6 launches each) and describes its last frame for the sift-sift table (6)
     by_path = {"default": main["launches"]["extract_blocks"],
@@ -2315,19 +2598,26 @@ def main() -> int:
     for tag, c, bound in (("throughput", thr_cfg, THR_ATE_BOUND_M),
                           ("turn_robust", turn_cfg, TURN_ATE_BOUND_M)):
         gap = c.bootstrap.frame_gap
-        out, poses[tag] = main_path_phase(f"main:{tag}", c, seq, frames, bound,
-                                          12 * (BA_FRAMES - 1 - gap) + 6 * gap + 6,
-                                          args.profile, n_frames=BA_FRAMES)
+        out, poses[tag], runs[tag] = main_path_phase(
+            f"main:{tag}", c, seq, frames, bound, 12 * (BA_FRAMES - 1 - gap) + 6 * gap + 6,
+            args.profile, n_frames=BA_FRAMES)
         by_path[tag] = out["launches"]["extract_blocks"]
         floors[tag] = out["min_launches"]
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
+    # [graphs]: each path's graphed run against its eager run, exactly
+    for tag, c, n in (("default", cfg, N_FRAMES), ("reference", ref_cfg, N_FRAMES),
+                      ("throughput", thr_cfg, BA_FRAMES), ("turn_robust", turn_cfg, BA_FRAMES)):
+        graphs_phase(tag, c, seq, frames, n, runs.pop(tag))
+    graphs_run_phase(cfg, seq, frames)
+    graphed_chunk_syncs("default", cfg, seq, frames, N_FRAMES)
+    graphed_chunk_syncs("turn_robust", turn_cfg, seq, frames, BA_FRAMES)
     checkpoint_phase("checkpoint:turn_robust", turn_cfg, seq, frames, BA_FRAMES,
                      poses["turn_robust"])
     for mode, n_frames, jax_ate in MODES:
         c = load_config(overrides=mode_overrides(mode))
-        out, _ = main_path_phase(f"main:{mode}", c, seq, frames, 8 * jax_ate,
-                                 _launch_floor(c, n_frames - 1 - c.bootstrap.frame_gap, 1),
-                                 args.profile, n_frames=n_frames)
+        out, _, _ = main_path_phase(f"main:{mode}", c, seq, frames, 8 * jax_ate,
+                                    _launch_floor(c, n_frames - 1 - c.bootstrap.frame_gap, 1),
+                                    args.profile, n_frames=n_frames)
         path = mode.replace("-", "_").replace("+", "_")
         by_path[path], floors[path] = out["launches"]["extract_blocks"], out["min_launches"]
     counted = {**recovery_phase(cfg, turn_cfg, seq, frames), **stress_phase(cfg),
@@ -2361,6 +2651,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path",
             "sift_ms", "sift_plain_ms", "sift_bound_ms", "sift_ypad_ms")
     lkeys = keys[:12] + ("launches_per_batched_step", "ms_by_streams", "two_d_ms_one_stream")
+    _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
+         f"to the kernel line")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -288,10 +288,11 @@ class RuntimeConfig:
     #                                precision AND forces the KLT block extraction
     #                                onto the slower XLA gather path — Mosaic's
     #                                dynamic rotate is 32-bit only)
-    donate_state: bool = True      # donate the state buffer to the jitted step. The
-    #                                port ignores it: eager PyTorch has no buffer
-    #                                donation (the field stays so one YAML file loads
-    #                                into both packages)
+    donate_state: bool = True      # donate the state buffer to the compiled step: on
+    #                                the card its CUDA graph writes the new state back
+    #                                into the state's own buffers, which it returns
+    #                                (utils/graphs.py); false returns a copy and leaves
+    #                                the caller's state valid. Eager on the CPU
     prefetch_depth: int = 2        # frames in flight host->device
 
 

@@ -35,12 +35,18 @@ Decisions, against the JAX package's batched step:
 - As in the JAX package's batched chunk step there is no re-bootstrap inside: a
   collapsed stream's ``health`` is the caller's to read.
 - Nothing reads back to the host inside a batched step or chunk.
+- On the card the vmapped step and the vmapped keyframe step are CUDA graphs
+  (``utils/graphs.py``, where the JAX package jits them), captured per shape at their
+  first call, with the state (and the window) donated as ``cfg.runtime.donate_state``
+  says; the chunk step is a Python loop of their replays. ``torch.func.vmap`` runs at
+  the capture only, and the layered kernel's launches are counted per replay.
 - With a mesh (:mod:`lcvo_tpu_torch.parallel.mesh`) the step is SPMD, one process per
   device: each rank passes its own part of the streams
   (:func:`~lcvo_tpu_torch.parallel.mesh.shard_batched_state`), runs the vmapped step
   on its device and gets its part back. The one value that crosses ranks is ``agg``,
   summed over the mesh axis (the JAX package's replicated ``agg``). Without a mesh the
-  step is the batched step on one device.
+  step is the batched step on one device. The sum over ranks runs after the replay,
+  outside the graph: a gloo collective cannot be captured.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from lcvo_tpu_torch.core.state import resolve_device
 from lcvo_tpu_torch.parallel.mesh import mesh_from_config, psum
 from lcvo_tpu_torch.pipeline import make_ba_step, make_process_frame
 from lcvo_tpu_torch.solve.ba import window as win_mod
+from lcvo_tpu_torch.utils.graphs import compile_step
 
 
 def _dims(tree, dim=0):
@@ -99,9 +106,17 @@ def _mesh_of(cfg, mesh, axis: str, dev: torch.device):
     return mesh, axis
 
 
-def _vmapped_frame(pf, states, images, samples, gen):
+def _pool(dev: torch.device):
+    """One graph memory pool for the compiled steps made by one ``make_*`` call (None off
+    the card)."""
+    return torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+
+def _vmapped_frame(pf, states, images, gen_or_samples):
     """``process_frame`` over the stream dim: with injected samples (S, n_hyp, 3), or
-    with one draw for all streams from ``gen``."""
+    with one draw for all streams from a generator."""
+    samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
+    gen = None if samples is not None else gen_or_samples
     d = _dims(states)
     if samples is not None:
         return torch.func.vmap(
@@ -129,16 +144,21 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
     mesh, axis = _mesh_of(cfg, mesh, axis, dev)
     pf = make_process_frame(cfg, K, dev)
 
-    def step(states, images, gen_or_samples):
-        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
-        gen = None if samples is not None else gen_or_samples
-        states, results = _vmapped_frame(pf, states, images, samples, gen)
+    def local(states, images, gen_or_samples):
+        states, results = _vmapped_frame(pf, states, images, gen_or_samples)
         agg = {
             "tracked": torch.sum(results.n_tracked),
             "inliers": torch.sum(results.n_inliers),
             "promoted": torch.sum(results.n_promoted),
             "pose_ok": torch.sum(results.pose_ok.to(torch.int32)),
         }
+        return states, results, agg
+
+    compiled = compile_step(local, donate=cfg.runtime.donate_state, pool=_pool(dev),
+                            name="multistream_step")
+
+    def step(states, images, gen_or_samples):
+        states, results, agg = compiled(states, images, gen_or_samples)
         if mesh is not None:
             # the fleet's sums: one collective for the four
             total = psum(torch.stack(list(agg.values())), mesh, axis)
@@ -180,10 +200,26 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
     _mesh_of(cfg, mesh, axis, dev)      # a mesh from the config must fit the world, as in the step
     pf = make_process_frame(cfg, K, dev)
     ba_step = make_ba_step(cfg, K, dev) if ba else None
+    kw = dict(donate=cfg.runtime.donate_state, pool=_pool(dev))
+    frame = compile_step(lambda states, images, g: _vmapped_frame(pf, states, images, g),
+                         name="multistream_frame", **kw)
+
+    def keyframes(carry, select):
+        """The vmapped keyframe step on every stream; ``select``: kept only for the
+        streams on cadence, decided on the device from ``state.frame_idx``."""
+        states, windows = carry
+        d, dw = _dims(states), _dims(windows)
+        new_states, new_windows, _ = torch.func.vmap(
+            ba_step, in_dims=(d, dw), out_dims=(d, dw, 0))(states, windows)
+        if not select:
+            return (new_states, new_windows),
+        on = states.frame_idx % every == 0
+        return _select(on, (new_states, new_windows), (states, windows)),
+
+    keyframe = compile_step(keyframes, name="multistream_keyframe", **kw) if ba else None
 
     def chunk_step(carry, frames, gen_or_samples, frame_idx=None):
         samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
-        gen = None if samples is not None else gen_or_samples
         S = frames.shape[0]
         if frame_idx is None:
             frame_idx = (carry[0] if ba else carry).frame_idx.tolist()
@@ -194,19 +230,12 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
         states, windows = carry if ba else (carry, None)
         outs = []
         for j in range(frames.shape[1]):
-            states, res = _vmapped_frame(pf, states, frames[:, j],
-                                         None if samples is None else samples[:, j], gen)
+            states, res = frame(states, frames[:, j],
+                                gen_or_samples if samples is None else samples[:, j])
             outs.append(res)
             due = [(f + j + 1) % every == 0 for f in frame_idx] if ba else [False]
             if any(due):
-                d, dw = _dims(states), _dims(windows)
-                new_states, new_windows, _ = torch.func.vmap(
-                    ba_step, in_dims=(d, dw), out_dims=(d, dw, 0))(states, windows)
-                if all(due):
-                    states, windows = new_states, new_windows
-                else:
-                    on = states.frame_idx % every == 0
-                    states, windows = _select(on, (new_states, new_windows), (states, windows))
+                ((states, windows),) = keyframe((states, windows), not all(due))
         stacked = (torch.stack([r.R for r in outs], 1), torch.stack([r.t for r in outs], 1),
                    torch.stack([r.pose_ok for r in outs], 1),
                    torch.stack([r.n_inliers for r in outs], 1))

@@ -13,7 +13,10 @@ pushed into the keyframe ring and the window is refined (Schur-complement LM), a
 with no host round trip: the host keeps a mirror of ``state.frame_idx`` and decides the
 cadence from it. The host loop (:class:`VisualOdometry`) reads results back once per
 chunk, performs re-bootstrap recovery when the ``health`` counter says tracking
-collapsed, and saves and resumes checkpoints.
+collapsed, and saves and resumes checkpoints. On the card it replays the per-frame step
+and the keyframe step as CUDA graphs with the state donated (``utils/graphs.py``, where
+the JAX package jits them); the ``make_*`` functions return the eager steps, as the
+JAX package's return unjitted ones.
 
 Ported: the ``shi-mask``/``harris-mask``/``sift-mask``/``sift-sift`` candidate modes,
 the KLT and the SIFT-matching bootstrap, the eight-point and five-point essential
@@ -41,6 +44,7 @@ from lcvo_tpu_torch.ops.klt import pyramidal_klt
 from lcvo_tpu_torch.ops.pyramid import build_pyramid
 from lcvo_tpu_torch.solve.ba import window as win_mod
 from lcvo_tpu_torch.utils import checkpoint as ckpt
+from lcvo_tpu_torch.utils import graphs
 
 
 class FrameResult(NamedTuple):
@@ -376,6 +380,57 @@ def keyframes_in(frame_idx: int, n: int, every: int) -> int:
     return (frame_idx + n) // every - frame_idx // every
 
 
+def frame_step(process):
+    """``process_frame`` with its randomness as one argument: ``step(state, image, gen)``
+    where ``gen`` is a generator or injected PnP samples (n_hyp, 3). The form a compiled
+    step takes (a callable cannot be a graph's argument)."""
+    def step(state, image, gen):
+        if torch.is_tensor(gen):
+            return process(state, image, None, pnp_sampler=lambda valid: gen)
+        return process(state, image, gen)
+
+    return step
+
+
+def carry_step(ba_step):
+    """``ba_step`` on the chunk carry: ``step((state, window)) -> ((state', window'),
+    result)``, so that the state and the window are donated together."""
+    def step(carry):
+        state, window, res = ba_step(*carry)
+        return (state, window), res
+
+    return step
+
+
+def chunk_loop(step, keyframe_step=None, every: int = 1, on_refine=None):
+    """The chunk step over a per-frame step (:func:`frame_step`'s form) and, with BA, a
+    keyframe step (:func:`carry_step`'s form) on the cadence ``every``: the Python loop
+    that stands for the JAX package's ``lax.scan`` with BA under ``lax.cond``. The steps
+    may be eager or compiled (``utils/graphs.py``); :func:`make_chunk_fn` documents the
+    signature."""
+    def stack(outs):
+        return (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
+                torch.stack([r.pose_ok for r in outs]),
+                torch.stack([r.n_inliers for r in outs]))
+
+    def chunk_fn(carry, frames, gen, frame_idx=None):
+        ba = keyframe_step is not None
+        state, window = carry if ba else (carry, None)
+        if ba and frame_idx is None:
+            frame_idx = int(state.frame_idx)
+        outs = []
+        for j in range(frames.shape[0]):
+            state, res = step(state, frames[j], gen[j] if torch.is_tensor(gen) else gen)
+            outs.append(res)
+            if ba and (frame_idx + j + 1) % every == 0:
+                (state, window), ba_res = keyframe_step((state, window))
+                if on_refine is not None:
+                    on_refine(ba_res)
+        return ((state, window) if ba else state), stack(outs)
+
+    return chunk_fn
+
+
 def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
     """``chunk_fn(carry, frames (chunk,H,W), gen, frame_idx=None) -> (carry',
     (R (chunk,3,3), t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``:
@@ -389,47 +444,14 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
     cadence is decided on the host: ``frame_idx`` is ``state.frame_idx`` at the start
     of the chunk as a Python int (the caller's mirror of it); left out, it is read
     from the device once, which waits for it. ``on_refine(result)`` receives each
-    refine's :class:`BAResult` (tensors on the device)."""
-    process = make_process_frame(cfg, K, device)
-
-    def fn(state, image, gen, j):
-        if torch.is_tensor(gen):
-            return process(state, image, None, pnp_sampler=lambda valid: gen[j])
-        return process(state, image, gen)
-
-    def stack(outs):
-        return (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
-                torch.stack([r.pose_ok for r in outs]),
-                torch.stack([r.n_inliers for r in outs]))
-
+    refine's :class:`BAResult` (tensors on the device). The steps run eagerly, as the
+    JAX package's ``make_chunk_fn`` returns an unjitted function:
+    :meth:`VisualOdometry.make_chunk_step` is the compiled chunk step."""
+    step = frame_step(make_process_frame(cfg, K, device))
     if not cfg.ba.enabled:
-        def chunk_fn(state, frames, gen, frame_idx=None):
-            outs = []
-            for j in range(frames.shape[0]):
-                state, res = fn(state, frames[j], gen, j)
-                outs.append(res)
-            return state, stack(outs)
-
-        return chunk_fn
-
-    ba_step = make_ba_step(cfg, K, device)
-    every = cfg.ba.keyframe_every
-
-    def chunk_fn_ba(carry, frames, gen, frame_idx=None):
-        state, window = carry
-        if frame_idx is None:
-            frame_idx = int(state.frame_idx)
-        outs = []
-        for j in range(frames.shape[0]):
-            state, res = fn(state, frames[j], gen, j)
-            outs.append(res)
-            if (frame_idx + j + 1) % every == 0:
-                state, window, ba_res = ba_step(state, window)
-                if on_refine is not None:
-                    on_refine(ba_res)
-        return (state, window), stack(outs)
-
-    return chunk_fn_ba
+        return chunk_loop(step)
+    return chunk_loop(step, carry_step(make_ba_step(cfg, K, device)), cfg.ba.keyframe_every,
+                      on_refine)
 
 
 # ---------------------------------------------------------------------------
@@ -438,15 +460,22 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
 
 
 class VisualOdometry:
-    """Host-side loop: owns the step, the bootstrap state machine and failure
-    recovery. ``device`` defaults to CUDA; the CPU runs only when asked for."""
+    """Host-side loop: owns the compiled steps, the bootstrap state machine and failure
+    recovery. ``device`` defaults to CUDA; the CPU runs only when asked for.
+
+    On the card the per-frame step and the keyframe step are CUDA graphs
+    (:func:`lcvo_tpu_torch.utils.graphs.compile_step`, where the JAX package applies
+    ``jax.jit``), captured at their first call and replayed after it, with the state
+    donated when ``cfg.runtime.donate_state`` is set; ``graphs.disable_graphs()`` runs
+    them eagerly. The state and the window are then the graphs' buffers: every bootstrap,
+    :meth:`set_chunk_carry` and :meth:`resume` write into them and never rebind them, so
+    a re-bootstrap mid-run replays the same graphs. On the CPU the steps run eagerly."""
 
     def __init__(self, cfg: VOConfig, K: np.ndarray, device="cuda"):
         check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = np.asarray(K, np.float64)
-        self._process = make_process_frame(cfg, self.K, self.device)
         self._detect0, self._track_pair, self._two_view = make_bootstrap_fns(
             cfg, self.K, self.device)
         self.state: st.VOState | None = None
@@ -467,10 +496,33 @@ class VisualOdometry:
         self.n_keyframes = 0                    # keyframes pushed, counted on the host
         if cfg.ba.enabled:
             self.window = win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, self.device)
-            self._ba_step_fn = make_ba_step(cfg, self.K, self.device)
             # [refines run, refines whose cost is not <= the cost they started from],
             # kept on the device and read only when ba_refine_stats() is asked
             self._ba_stats = torch.zeros((2,), dtype=torch.int32, device=self.device)
+        self._compile_steps()
+
+    def _compile_steps(self, capture=None):
+        """The per-frame step (``frame_step`` form) and, with BA, the keyframe step on
+        the ``(state, window)`` carry, compiled: one memory pool for both, the state
+        donated as ``cfg.runtime.donate_state`` says. The per-frame step takes the
+        generator as an argument, and the graph registers it from there. ``capture`` is
+        the CPU tests' stand-in for the CUDA capture (``utils/graphs.py``)."""
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        kw = dict(donate=self.cfg.runtime.donate_state, pool=pool, capture=capture)
+        self._process = graphs.compile_step(
+            frame_step(make_process_frame(self.cfg, self.K, self.device)),
+            name="process_frame", **kw)
+        self._ba = None
+        if self.window is not None:
+            self._ba = graphs.compile_step(
+                carry_step(make_ba_step(self.cfg, self.K, self.device)), name="ba_step", **kw)
+
+    def graph_stats(self) -> dict:
+        """The compiled steps' graphs (warm-up, capture and instantiation seconds, nodes,
+        replays, launches per replay) and the bytes of their shared memory pool."""
+        steps = [c for c in (self._process, self._ba) if c is not None]
+        return {"graphs": [g for c in steps for g in c.stats()],
+                "pool_bytes": max((c.pool_bytes() for c in steps), default=0)}
 
     def _frame(self, f) -> torch.Tensor:
         """A frame on the device in its own dtype (uint8 stays uint8; the step casts)."""
@@ -523,7 +575,8 @@ class VisualOdometry:
         self._frame_idx = 0
         if self.window is not None:
             # stale keyframes must not constrain the re-initialized map
-            self.window = win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, dev)
+            self.window = graphs.place(
+                self.window, win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, dev))
         Kt = _K_tensor(self.K, dev)
         boot_ang = geo.bearing_angle(R0t, t0t, R_last, t_last, pts0, pts, Kt)
         tracks = st.insert_into_tracks(state.tracks, pts, X_w, good,
@@ -552,7 +605,8 @@ class VisualOdometry:
             if f1 is None:
                 f1 = _sift_features(cfg, imgs[-1])
             state = state._replace(prev_desc=f1.desc, prev_desc_valid=f1.valid)
-        self.state = state
+        # into the graphs' buffers: a re-bootstrap replays the same graphs
+        self.state = graphs.place(self.state, state)
         n = int(n_inl)
         if n < cfg.bootstrap.min_matches:
             warnings.warn(
@@ -573,7 +627,7 @@ class VisualOdometry:
 
     def _ba_step(self):
         """Push the current frame as a keyframe and refine the window."""
-        self.state, self.window, res = self._ba_step_fn(self.state, self.window)
+        (self.state, self.window), res = self._ba((self.state, self.window))
         self.n_keyframes += 1
         self._note_refine(res)
 
@@ -647,19 +701,26 @@ class VisualOdometry:
         )
 
     def _host_pose(self):
-        return self.state.R.cpu().numpy(), self.state.t.cpu().numpy()
+        # copies: on the CPU ``.numpy()`` would share the state's buffers, which the next
+        # bootstrap writes into
+        return self.state.R.cpu().numpy().copy(), self.state.t.cpu().numpy().copy()
 
     # -- chunked throughput mode -------------------------------------------
     def make_chunk_step(self, chunk: int):
-        """The chunk step the host loop runs: :func:`make_chunk_fn` on this instance's
-        device, with BA refines counted into :meth:`ba_refine_stats`. Returns
-        ``chunk_fn(carry, frames (chunk, H, W), gen, frame_idx=None) -> (carry', (R
-        (chunk,3,3), t (chunk,3), pose_ok, n_inliers))``; the carry is
-        :meth:`chunk_carry`, ``frame_idx`` the host mirror ``self._frame_idx``, and the
-        caller hands the carry back with :meth:`set_chunk_carry`. ``chunk`` is kept for
-        the JAX package's signature: the step takes any number of frames."""
-        return make_chunk_fn(self.cfg, self.K, self.device,
-                             on_refine=self._note_refine if self.window is not None else None)
+        """The chunk step the host loop runs (the JAX package jits it): a Python loop
+        that replays this instance's compiled per-frame step and, on the cadence of the
+        host mirror, its compiled keyframe step, with BA refines counted into
+        :meth:`ba_refine_stats`. Returns ``chunk_fn(carry, frames (chunk, H, W), gen,
+        frame_idx=None) -> (carry', (R (chunk,3,3), t (chunk,3), pose_ok, n_inliers))``
+        as :func:`make_chunk_fn`; the carry is :meth:`chunk_carry` (donated: with
+        ``runtime.donate_state`` the carry that comes back is the same buffers),
+        ``frame_idx`` the host mirror ``self._frame_idx``, and the caller hands the carry
+        back with :meth:`set_chunk_carry`. ``chunk`` is kept for the JAX package's
+        signature: the step takes any number of frames."""
+        if self.window is None:
+            return chunk_loop(self._process)
+        return chunk_loop(self._process, self._ba, self.cfg.ba.keyframe_every,
+                          self._note_refine)
 
     def chunk_carry(self):
         """Carry for :func:`make_chunk_fn`'s step: the VO state, plus the BA window
@@ -670,10 +731,11 @@ class VisualOdometry:
         """Take a chunk step's carry back. ``n_frames``: how many frames that step
         processed, which advances the host's mirror of ``frame_idx`` and its keyframe
         count; left out, the mirror is read from the device (which waits for it)."""
-        if self.window is None:
-            self.state = carry
-        else:
-            self.state, self.window = carry
+        state, window = (carry, None) if self.window is None else carry
+        # into the graphs' buffers (nothing moves when the carry is those buffers)
+        self.state = graphs.place(self.state, state)
+        if window is not None:
+            self.window = graphs.place(self.window, window)
         if n_frames is None:
             self._frame_idx = int(self.state.frame_idx)
         else:
@@ -936,11 +998,11 @@ class VisualOdometry:
                     f"type it was saved on")
             self._gen.set_state(rng_state)
         self.n_rebootstraps = int(extras.get("n_rebootstraps", 0))
-        self.state = state
+        self.state = graphs.place(self.state, state)
         # the BA cadence follows the mirror: bring it back with the state
         self._frame_idx = int(state.frame_idx)
         if window is not None:
-            self.window = window
+            self.window = graphs.place(self.window, window)
         self.trajectory = list(traj)
         if poses is not None:
             self.poses = list(poses)

@@ -1,0 +1,379 @@
+"""Compiled steps: the port's counterpart of ``jax.jit`` with ``donate_argnums``.
+
+The JAX package compiles its per-frame step, its keyframe step and its batched steps
+once and replays them, the state donated (``lcvo_tpu/pipeline.py:503-504``, ``:520``,
+``parallel/streams.py:62-70,104-114``). Eager PyTorch dispatches every op from the host,
+3,000-5,000 of them a frame, and the card waits for the host most of the time.
+:func:`compile_step` wraps an eager function so that on the card it runs as a CUDA
+graph:
+
+- **Capture.** The first call for a key captures ``fn`` into a
+  ``torch.cuda.CUDAGraph``; every later call with that key copies its arguments into
+  the graph's input buffers (unless they already are those buffers), replays the
+  graph and returns its outputs. The key is the argument tree, the shape, dtype and
+  device of each tensor in it, its Python scalars (the counterpart of
+  ``static_argnames``) and the identity of each ``torch.Generator`` in it.
+- **Warm-up.** Before a capture ``fn`` runs once, eagerly, on copies of the arguments,
+  on the capture stream: lazy device constants, library handles and workspaces are made
+  there, outside the capture. Every generator among the arguments has its state saved
+  before the warm-up and put back after it, so the warm-up leaves the arguments and the
+  random stream where the caller left them. Those generators are registered with the
+  graph, so a replay draws what the eager call would draw at that point of the stream;
+  a step draws only from generators it takes as arguments.
+- **Donation** (``donate=True``, the counterpart of ``donate_argnums=(0,)``). The first
+  argument is the state, and ``fn`` returns its new value first. On the first call the
+  state's tensors become the graph's input buffers as they are (adopted, not copied; a
+  tensor that shares memory with an earlier one of the state is cloned first), and at
+  the end of the captured region the new state is written back into them. The returned
+  state *is* those buffers, so the next call passes them back with no copy. Outputs may
+  alias inputs (``process_frame`` returns ``prev_R=state.R``; unchanged fields come back
+  as they went in). This module resolves that with temporaries, not with a second set
+  of buffers: a field that comes back as its own buffer is not written, and every value
+  that reads a buffer about to be written (a source of the write-back, or another
+  output) is first copied to a temporary inside the graph, so all reads come before all
+  writes. ``donate=False``: the input buffers are the graph's own copies and the state
+  comes back as a clone, so the caller's old state stays valid.
+- **Outputs** that are not the donated state come back as clones made after the
+  replay: the next replay overwrites the graph's own.
+- **Device rule.** CPU tensors run ``fn`` eagerly; so do CUDA tensors inside
+  :func:`disable_graphs` (the counterpart of ``jax.disable_jit()``), which a caller asks
+  for to compare with the eager run. A capture that fails raises
+  :class:`GraphCaptureError` naming the operation; nothing falls back to eager.
+- **Launch accounting.** ``kernels.LAUNCHES`` counts Python calls of a kernel's
+  wrapper, and a replay passes no Python. So the wrapper takes back what the counters
+  moved during the warm-up (copies whose results are dropped: set-up) and the capture
+  (which launches nothing), and adds the capture's amount at every replay. The counters
+  read what the eager run reads: launches of the path's own work on the device.
+- **Memory.** The graphs of one compiled step share one memory pool, and a caller
+  passes ``pool=`` to share one between steps that never run at the same time (the
+  graphs of one ``VisualOdometry``). Each graph keeps its outputs alive, so another
+  graph of the pool reuses only its temporaries.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import time
+import traceback
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from lcvo_tpu_torch import kernels
+
+_SCALARS = (bool, int, float, str, type(None))
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run compiled steps eagerly on the card too, for as long as the block lasts (the
+    counterpart of ``jax.disable_jit()``). The eager call neither reads nor writes a
+    graph's buffers: the caller's arguments go to ``fn`` as they are."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+class GraphCaptureError(RuntimeError):
+    """A step could not be captured into a CUDA graph."""
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """One tensor, or two views of the same memory with the same layout."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype
+                      and a.shape == b.shape and a.stride() == b.stride())
+
+
+def _assign(pairs) -> set:
+    """``dst <- src`` for each ``(dst, src)`` pair of tensors that are not one tensor. A
+    source that shares memory with a destination is copied to a temporary first, so
+    every read comes before every write. Returns the storages written."""
+    pairs = [(d, s) for d, s in pairs if not _same(d, s)]
+    written = {_storage(d) for d, _ in pairs}
+    pairs = [(d, s.clone() if _storage(s) in written else s) for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
+    return written
+
+
+def _unaliased(leaves: list) -> list:
+    """The leaves with every tensor that shares memory with an earlier one cloned."""
+    seen, out = set(), []
+    for x in leaves:
+        if torch.is_tensor(x):
+            if _storage(x) in seen:
+                x = x.clone()
+            seen.add(_storage(x))
+        out.append(x)
+    return out
+
+
+def place(dst, src):
+    """The host loop's write of a new value into a tree it owns (a state, a window):
+    ``src``'s values are copied into ``dst``'s tensors and ``dst`` is returned, so the
+    graphs that read ``dst``'s buffers see them with no recapture. Where ``dst`` is
+    None, its tree or a tensor's shape or dtype differs from ``src``'s, or two of its
+    tensors share memory (a state that came from an eager step), a copy of ``src`` is
+    returned instead: buffers of the caller's own, which share memory with nothing
+    (on the CPU a frame's tensor may be the caller's numpy array)."""
+    sl, spec = tree_flatten(src)
+    if dst is not None:
+        dl, dspec = tree_flatten(dst)
+        fits = dspec == spec and all(
+            (d is None and s is None) or (torch.is_tensor(d) and torch.is_tensor(s)
+                                          and d.shape == s.shape and d.dtype == s.dtype
+                                          and d.device == s.device)
+            for d, s in zip(dl, sl))
+        if fits and all(a is b for a, b in zip(_unaliased(dl), dl)):
+            _assign([(d, s) for d, s in zip(dl, sl) if d is not None])
+            return dst
+    return tree_unflatten([x.clone() if torch.is_tensor(x) else x for x in sl], spec)
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost frame of the failure outside this module and outside torch: the
+    operation the capture could not take."""
+    skip = (os.path.abspath(__file__), os.path.dirname(os.path.abspath(torch.__file__)))
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if not f.filename.startswith(skip)]
+    if not frames:
+        return "the end of the capture (no operation of the step raised)"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} ({(f.line or '').strip()})"
+
+
+class _CudaGraphs:
+    """Warm-up, capture and replay on a CUDA device; the graphs of one step share its
+    capture stream and memory pool."""
+
+    def __init__(self, device: torch.device, pool):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
+
+    def warmup(self, run) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            run()
+        cur.wait_stream(self.stream)
+
+    def capture(self, body, generators):
+        torch.cuda.synchronize(self.device)
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in generators:
+            g.register_generator_state(gen)
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            g.capture_begin(pool=self.pool)
+            try:
+                outs = body()
+            except BaseException:
+                # end the broken capture so the stream leaves capture mode; the error
+                # raised inside the step is the one to report
+                with contextlib.suppress(RuntimeError):
+                    g.capture_end()
+                raise
+            g.capture_end()
+        t1 = time.perf_counter()
+        nodes = _graph_nodes(g)
+        g.instantiate()
+        info = {"capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
+                "nodes": nodes}
+        return (g, outs), info
+
+    def replay(self, handle):
+        g, outs = handle
+        g.replay()
+        return outs
+
+    def pool_bytes(self) -> int:
+        """Bytes the caching allocator holds in this pool's segments."""
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
+
+
+def _graph_nodes(g: torch.cuda.CUDAGraph) -> int:
+    """Nodes of a captured graph (kernels, copies, memsets): ``cuGraphGetNodes`` of the
+    CUDA driver API."""
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    code = fn(ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({code})")
+    return n.value
+
+
+class _Entry:
+    """One captured graph: its input buffers, how many output leaves are the donated
+    state (returned as they are), launches per replay and figures of the capture."""
+
+    def __init__(self, backend, bufs, handle, n_keep, launches, info):
+        self.backend = backend
+        self.bufs = bufs
+        self.handle = handle
+        self.n_keep = n_keep
+        self.launches = launches
+        self.info = info
+        self.replays = 0
+
+
+class CompiledStep:
+    """``fn`` behind CUDA graphs; see the module docstring and :func:`compile_step`."""
+
+    def __init__(self, fn, donate=True, pool=None, name=None, capture=None):
+        self.fn = fn
+        self.donate = bool(donate)
+        self.pool = pool
+        self.name = name or getattr(fn, "__name__", "step")
+        self._capture_with = capture
+        self._backends: dict = {}
+        self._entries: dict = {}
+
+    # -- calling -------------------------------------------------------------------
+    def __call__(self, *args):
+        leaves, spec = tree_flatten(args)
+        tensors = [x for x in leaves if torch.is_tensor(x)]
+        if _disabled or (self._capture_with is None
+                         and not any(t.device.type == "cuda" for t in tensors)):
+            return self.fn(*args)
+        devices = {t.device for t in tensors}
+        if len(devices) != 1:
+            raise ValueError(f"{self.name}: tensors on {sorted(map(str, devices))}: a "
+                             f"compiled step takes them on one device")
+        key = (spec, tuple(self._key_of(x) for x in leaves))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = self._capture(args, leaves, spec, devices.pop())
+        else:
+            _assign([(b, x) for b, x in zip(entry.bufs, leaves) if torch.is_tensor(b)])
+        return self._replay(entry)
+
+    def _key_of(self, x):
+        if torch.is_tensor(x):
+            return (tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, torch.Generator):
+            return ("generator", id(x))
+        if isinstance(x, _SCALARS):
+            return (type(x), x)
+        raise TypeError(f"{self.name}: a compiled step takes tensors, generators and Python "
+                        f"scalars in its arguments, got a {type(x).__name__}")
+
+    def _backend(self, device):
+        if self._capture_with is not None:
+            return self._capture_with
+        if device not in self._backends:
+            self._backends[device] = _CudaGraphs(device, self.pool)
+            self.pool = self._backends[device].pool
+        return self._backends[device]
+
+    def captures(self) -> int:
+        """Graphs captured so far (one per key)."""
+        return len(self._entries)
+
+    # -- capture -------------------------------------------------------------------
+    def _capture(self, args, leaves, spec, device) -> _Entry:
+        backend = self._backend(device)
+        n_don = len(tree_flatten(args[0])[0]) if self.donate else 0
+        # the donated state's tensors are adopted (de-aliased), every other tensor copied
+        bufs = _unaliased(leaves[:n_don]) + [x.clone() if torch.is_tensor(x) else x
+                                             for x in leaves[n_don:]]
+        static = tree_unflatten(bufs, spec)
+        gens = [x for x in leaves if isinstance(x, torch.Generator)]
+        counts = dict(kernels.LAUNCHES)
+
+        copies = tree_unflatten([x.clone() if torch.is_tensor(x) else x for x in bufs], spec)
+        saved = [g.get_state() for g in gens]
+        t0 = time.perf_counter()
+        backend.warmup(lambda: self.fn(*copies))
+        warmup_s = time.perf_counter() - t0
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        del copies
+        kernels.LAUNCHES.update(counts)
+
+        don_bufs = bufs[:n_don]
+        state_spec = tree_flatten(args[0])[1] if self.donate else None
+
+        def body():
+            out = self.fn(*static)
+            if not self.donate:
+                return out
+            new, new_spec = tree_flatten(out[0])
+            if new_spec != state_spec:
+                raise TypeError(f"{self.name}: the state it returns has another tree than "
+                                f"the state it takes, so it cannot be donated")
+            pairs = []
+            for b, s in zip(don_bufs, new):
+                if (b is None) != (s is None) or (b is not None and (
+                        b.shape != s.shape or b.dtype != s.dtype)):
+                    raise TypeError(f"{self.name}: a state tensor comes back as "
+                                    f"{None if s is None else (tuple(s.shape), s.dtype)} "
+                                    f"for {None if b is None else (tuple(b.shape), b.dtype)}")
+                if b is not None:
+                    pairs.append((b, s))
+            rest, rest_spec = tree_flatten(tuple(out[1:]))
+            # outputs that read a buffer the write-back overwrites are taken first
+            written = {_storage(b) for b, s in pairs if not _same(b, s)}
+            rest = [x.clone() if torch.is_tensor(x) and _storage(x) in written else x
+                    for x in rest]
+            _assign(pairs)
+            return (static[0], *tree_unflatten(rest, rest_spec))
+
+        try:
+            handle, info = backend.capture(body, gens)
+        except Exception as exc:
+            kernels.LAUNCHES.update(counts)
+            raise GraphCaptureError(f"{self.name}: CUDA graph capture failed at {_where(exc)}: "
+                                    f"{type(exc).__name__}: {exc}") from exc
+        launches = {k: kernels.LAUNCHES[k] - counts[k] for k in counts}
+        kernels.LAUNCHES.update(counts)
+        return _Entry(backend, bufs, handle, n_don, launches, {"warmup_s": warmup_s, **info})
+
+    def _replay(self, entry: _Entry):
+        out = entry.backend.replay(entry.handle)
+        for k, n in entry.launches.items():
+            kernels.LAUNCHES[k] += n
+        entry.replays += 1
+        leaves, spec = tree_flatten(out)
+        n = entry.n_keep
+        return tree_unflatten(leaves[:n] + [x.clone() if torch.is_tensor(x) else x
+                                            for x in leaves[n:]], spec)
+
+    # -- figures -------------------------------------------------------------------
+    def stats(self) -> list[dict]:
+        """One dict per captured graph: the step's name, warm-up, capture and
+        instantiation seconds, graph nodes (on the card), replays and kernel launches
+        per replay."""
+        return [{"name": self.name, **e.info, "replays": e.replays,
+                 "launches_per_replay": {k: n for k, n in e.launches.items() if n}}
+                for e in self._entries.values()]
+
+    def pool_bytes(self) -> int:
+        """Bytes held in the memory pool of this step's graphs (0 before a capture on
+        the card)."""
+        return sum(b.pool_bytes() for b in self._backends.values())
+
+
+def compile_step(fn, *, donate=True, pool=None, name=None, capture=None):
+    """``fn`` as a compiled step: CUDA graphs on the card, eager on the CPU (module
+    docstring). The generators ``fn`` draws from are among its arguments, and each is
+    registered with the graph. ``donate``: write the
+    new state (``fn``'s first result) back into the first argument's buffers; ``pool``:
+    a ``torch.cuda.graph_pool_handle()`` to share with other compiled steps. ``capture``
+    stands in for the CUDA capture (``warmup(run)``, ``capture(body, generators) ->
+    (handle, info)``, ``replay(handle) -> outputs``) in the CPU tests of this module's
+    bookkeeping; nothing in the package passes it."""
+    return CompiledStep(fn, donate=donate, pool=pool, name=name, capture=capture)

@@ -1,10 +1,9 @@
 """Every field of the port's ``VOConfig`` is read somewhere in ``lcvo_tpu_torch/``
 outside ``config.py`` (the port's twin of tests/test_config_usage.py, same pattern).
 
-One field is named as the exception: ``runtime.donate_state`` donates the state buffer
-to a jitted step in the JAX package, and eager PyTorch has nothing to donate it to. The
-field stays, so that one YAML file loads into both packages, and ``config.py`` says the
-port ignores it (ROADMAP §C, differences by design).
+No field is an exception: ``runtime.donate_state``, the last one the port did not read,
+reaches ``utils/graphs.compile_step`` (the port's ``jax.jit`` with ``donate_argnums``)
+through ``VisualOdometry`` and ``parallel/streams.py``.
 """
 
 from __future__ import annotations
@@ -13,11 +12,13 @@ import dataclasses
 import pathlib
 import re
 
+import pytest
+
 from lcvo_tpu.config import VOConfig as JVOConfig
 from lcvo_tpu_torch.config import VOConfig
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "lcvo_tpu_torch"
-IGNORED_BY_THE_PORT = {"donate_state"}
+IGNORED_BY_THE_PORT: set[str] = set()
 
 
 def _leaf_field_names(cls) -> set[str]:
@@ -43,13 +44,37 @@ def test_every_config_field_is_read_outside_config_py():
     assert not unused, f"config fields never read outside config.py: {unused}"
 
 
-def test_the_named_exception_is_unread_and_said_so_in_config_py():
-    """The exception is still unread (a port that starts reading it drops it from the
-    list), and ``config.py`` says that the port ignores it."""
-    assert _unread(IGNORED_BY_THE_PORT) == sorted(IGNORED_BY_THE_PORT)
-    text = (PKG / "config.py").read_text()
-    for name in IGNORED_BY_THE_PORT:
-        assert re.search(rf"{name}.*\n(\s*#.*\n)*\s*#.*port ignores it", text), name
+@pytest.mark.parametrize("donate", [True, False])
+def test_donate_state_reaches_compile_step(donate):
+    """``runtime.donate_state`` is what the compiled steps of the host loop and of the
+    ``make_multistream_*`` functions donate by, and ``config.py`` no longer says the port ignores it."""
+    import numpy as np
+
+    from lcvo_tpu_torch.config import load_config
+    from lcvo_tpu_torch.parallel import streams
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils import graphs
+
+    cfg = load_config(overrides={"runtime": {"donate_state": donate},
+                                 "ba": {"enabled": True}})
+    vo = VisualOdometry(cfg, np.eye(3), device="cpu")
+    assert isinstance(vo._process, graphs.CompiledStep)
+    assert vo._process.donate is donate and vo._ba.donate is donate
+    seen = []
+    real = graphs.CompiledStep.__init__
+
+    def spy(self, fn, **kw):
+        seen.append(kw["donate"])
+        real(self, fn, **kw)
+
+    graphs.CompiledStep.__init__ = spy
+    try:
+        streams.make_multistream_step(cfg, np.eye(3), device="cpu")
+        streams.make_multistream_chunk_step(cfg, np.eye(3), device="cpu")
+    finally:
+        graphs.CompiledStep.__init__ = real
+    assert seen == [donate] * 3
+    assert "port ignores it" not in (PKG / "config.py").read_text()
 
 
 def test_the_port_has_the_jax_package_fields():

@@ -27,6 +27,7 @@ called. Then stream 0's pose after the frame, S streams against one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -180,6 +181,7 @@ def main() -> int:
     from lcvo_tpu_torch.data.synthetic import SyntheticSequence
     from lcvo_tpu_torch.parallel import streams as ps
     from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -205,12 +207,10 @@ def main() -> int:
     Record = _recorder()
 
     def run(n, mode=None):
+        # eager: the recorder sees the ops a replayed graph would hide
         states = ps.stack_streams([vo.state] * n)
-        if mode is None:
+        with disable_graphs(), (mode or contextlib.nullcontext()):
             _, res, _ = step(states, images[:n], samples[:n])
-        else:
-            with mode:
-                _, res, _ = step(states, images[:n], samples[:n])
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return res
