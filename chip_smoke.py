@@ -27,6 +27,16 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    edge-padded copy of the same image, and at the SIFT caller's octave-0 call (beside
    the y-pad copy that precedes it), with CUDA graphs of back-to-back launches and
    CUDA events.
+   Then ``[svd]``: the SVD route (``ops/svd.py``, ``csrc/svd.cu``: cuSOLVER's
+   ``gesvdjBatched`` called as ``torch.linalg.svd`` calls it, its convergence codes left on
+   the device) against ``torch.linalg.svd`` at the four call sites' shapes (512 x 8 x 9
+   thin, 512 x 3 x 3, one 3 x 3, 51 x 5 x 9 full): singular values within 1e-5 relative,
+   reconstruction within 1e-5, the vectors the callers take within 1e-4 up to sign (the
+   five-point null space as its projector), and whether every bit agrees; each replayed
+   in a CUDA graph beside ``torch.linalg.svd``'s eager time and the bound; on the
+   bootstrap's own points (eight-point and five-point) ``essential_ransac``'s essential
+   matrix, inliers and count equal with either; the unconverged matrices of a batch by
+   sweep cap, and a bootstrap under a cap that leaves some raises at its read-back.
 4. Main paths, on the same 42 synthetic corridor frames at 1240x376, each with the
    launch counters set to 0 just before and read just after, each through
    ``VisualOdometry(cfg, K, device="cuda").run_chunked(frames, chunk=16)`` (bootstrap,
@@ -67,7 +77,15 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    and capture plus instantiation seconds, nodes, pool bytes and the host time of one
    replay; ``[graphs:run]`` the same for the default configuration through ``run``; then a
    replayed chunk of the default and of ``turn_robust`` (with keyframe replays) under the
-   sync detector. The streams, recovery and checkpoint phases below also run graphed:
+   sync detector. ``[bootstrap:<path>]`` (default, reference, throughput, turn_robust,
+   sift-mask): the bootstrap's pieces (pyramid, ``detect0``, ``track_pair`` per hop,
+   ``two_view_init``; the SIFT features and ``mutual_match`` where the path takes them)
+   replayed as graphs against ``disable_graphs()`` from the same seed: the state after
+   the bootstrap, R, t, the inlier count and the launches equal bit for bit, no host sync
+   inside the replays, the first and the warm bootstrap's wall seconds each way, the
+   replayed pieces alone (the rest is the eager assembly), the graphs, their capture and
+   instantiation seconds, nodes and pool bytes, 4 SVD launches per eight-point bootstrap
+   and 3 per five-point one. The streams, recovery and checkpoint phases below also run graphed:
    each S of ``[streams]`` and each recovery run is held to its eager twin (streams:
    equal exactly; recovery: the same re-bootstraps and anchors).
 5. Checkpoint, on the card: ``configs/turn_robust.yaml`` runs to a chunk boundary with
@@ -145,7 +163,8 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    launches at or above the floor that counts the re-bootstrap's KLT chain, no host sync
    in a chunk of the corrupted frames; with BA, every bootstrap leaves an empty window and
    the mirror at 0, and keyframes pushed = refines run = the cadence over each segment,
-   none above its starting cost. Then a track table cut to 8 refills past 24 by
+   none above its starting cost; each bootstrap's wall seconds graphed and eager, and no
+   re-bootstrap captures a graph the first bootstrap did not. Then a track table cut to 8 refills past 24 by
    re-detection, and a cleared one is detected (pose_ok False, health >= 1).
 14. Stress (``[stress]``): ``tests/test_stress.py``'s turn, textureless band with a moving
    occluder and arena corner through ``run``: at 416x160, where that file set its bounds,
@@ -165,7 +184,8 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
 17. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
    from its configuration and re-bootstrap count, each path checked against it); the
    kernel table as one JSON line (the 2-D entry, whose ``launches_by_path`` holds every
-   single-stream path above, and the layered entry), the ``nvidia-smi`` line, then
+   single-stream path above, the layered entry, and the SVD route with its launches on
+   the main and mode paths), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
@@ -189,6 +209,8 @@ import numpy as np
 
 # H100 SXM HBM3 peak rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM float32 outside the tensor cores (NVIDIA data sheet), for the operations bound
+F32_FLOPS_PER_S = 67e12
 N_FRAMES = 42            # 7 bootstrap + 2 chunks of 16 + 3 tail frames
 N_LATENCY = 6            # extra frames for the per-frame step latency
 CHUNK = 16
@@ -296,6 +318,25 @@ def jax_held_bound(jax_ate: float, file_bound: float) -> float:
 # as (ATE m, re-bootstraps); tests/test_fault_injection.py bounds both loops at 1.0 m.
 # The chunked runs hold the pose from the burst to the end of its chunk and through the
 # re-bootstrap (15 entries), hence their larger figure, above that bound in both packages.
+# [svd]: the four call sites of the two-view bootstrap at the shapes it gives them
+# (ops/epipolar.py: 512 hypotheses' 8 x 9 systems thin, their 3 x 3 projections, the
+# one 3 x 3 decomposition; ops/five_point.py: 51 samples' 5 x 9 systems, full), and
+# the route's limits against torch.linalg.svd on the card
+SVD_SHAPES = (("eight_point", (512, 8, 9), False), ("project_to_essential", (512, 3, 3), True),
+              ("decompose_essential", (3, 3), True), ("five_point", (51, 5, 9), True))
+SVD_S_REL = 1e-5          # singular values, relative
+SVD_RECON_REL = 1e-5      # |U S Vh - A| / |A|, per matrix
+SVD_VEC = 1e-4            # the vectors the callers take, up to sign (five-point: the
+                          # projector onto its 4-dim null space, whose basis is not unique)
+# SVD launches of one bootstrap: the eight-point fit, the projection and the two
+# decompositions (recover_pose in essential_ransac and in two_view_init); five-point:
+# its null space and the two decompositions
+SVD_PER_BOOTSTRAP = {"eight_point": 4, "five_point": 3}
+# a sweep cap under which the bootstrap's SVDs do not converge: on an H100 with
+# torch 2.11.0+cu128, cuSOLVER's batched routine flagged none of a random eight-point
+# batch at caps 1-4, 351 of 512 at 5 and 161 at 6 ([svd]'s own count, printed each run)
+SVD_FORCED_SWEEPS = 5
+BOOT_REPS = 3             # warm bootstraps timed per path in [bootstrap:*]
 RECOVERY_FRAMES = 64
 RECOVERY_BURST = (28, 31)
 RECOVERY_BURST_SEED = 0
@@ -831,6 +872,9 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     if launches["extract_blocks"] < min_launches:
         raise AssertionError(f"[{tag}] extract_blocks launched {launches['extract_blocks']} "
                              f"times on the main path, < {min_launches}")
+    if launches["svd"] < SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]:
+        raise AssertionError(f"[{tag}] the SVD launched {launches['svd']} times on the main "
+                             f"path, < {SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]} of a bootstrap")
     # marks: bootstrap end, the chunks, then the per-frame tail; the first chunk carries
     # first-call costs and is left out
     chunk_ends = [t for t, n in marks if n == CHUNK]
@@ -862,8 +906,10 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
             res.R.cpu()
             lat_eager.append((time.perf_counter() - t1) * 1e3)
 
-    # the bootstrap once more, warm, on a fresh VisualOdometry (it ends with a read-back)
+    # the bootstrap once more, warm, on a fresh VisualOdometry whose graphs its own first
+    # bootstrap captured (it ends with a read-back)
     vo_b = VisualOdometry(cfg, seq.K, device="cuda")
+    vo_b.bootstrap(list(frames[: gap + 1]))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     vo_b.bootstrap(list(frames[: gap + 1]))
@@ -1040,6 +1086,287 @@ def graphed_chunk_syncs(tag: str, cfg, seq, frames, n_frames: int) -> None:
          f"under torch.cuda.set_sync_debug_mode('warn'): no host sync")
 
 
+def _svd_bound(B: int, m: int, n: int) -> tuple[float, str]:
+    """The least time of B SVDs of m x n with U and V on the card: bytes (A read, S, U,
+    V and the codes written once) at the HBM rate, or operations (the Golub-Reinsch
+    count for S, U and V, 4a^2 b + 8a b^2 + 9b^3 with a >= b, Golub and Van Loan) at the
+    float32 rate, whichever is larger. A direct method's count, not the Jacobi sweeps
+    cuSOLVER makes, which its batched routine does not report."""
+    a, b = max(m, n), min(m, n)
+    nbytes = 4 * B * (m * n + b + m * m + n * n + 1)
+    ops = B * (4 * a * a * b + 8 * a * b * b + 9 * b ** 3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _svd_errors(site: str, A, got, want) -> dict:
+    """The route's results against torch.linalg.svd's: singular values (relative),
+    reconstruction (relative, per matrix), the vectors the call site takes up to sign."""
+    import torch
+
+    U, S, Vh = got
+    U0, S0, V0 = want
+    k = S.shape[-1]
+    s_rel = float(((S - S0).abs() / S0.abs().clamp_min(1e-30)).max())
+    rec = (U[..., :k] * S[..., None, :]) @ Vh[..., :k, :]
+    recon = float((torch.linalg.norm((rec - A).flatten(-2), dim=-1)
+                   / torch.linalg.norm(A.flatten(-2), dim=-1)).max())
+
+    def signed(v, v0):          # vectors along the last axis, each matched in sign
+        sgn = torch.sign((v * v0).sum(-1, keepdim=True))
+        return float((v * torch.where(sgn == 0, 1.0, sgn) - v0).abs().max())
+
+    if site == "eight_point":
+        vec = signed(Vh[..., -1, :], V0[..., -1, :])
+    elif site == "five_point":
+        N, N0 = Vh[..., 5:, :], V0[..., 5:, :]
+        vec = float((N.mT @ N - N0.mT @ N0).abs().max())
+    else:
+        vec = max(signed(U.mT, U0.mT), signed(Vh, V0))
+    return {"s_rel": s_rel, "recon_rel": recon, "vectors": vec}
+
+
+def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
+    """``[svd]``: the SVD route (``ops/svd.py`` + ``csrc/svd.cu``) against
+    ``torch.linalg.svd`` on the card at the four call sites' shapes (singular values,
+    reconstruction, the vectors used, and whether every bit agrees), each one's time
+    replayed in a CUDA graph beside ``torch.linalg.svd``'s eager time (it cannot be
+    captured) and the bound; on a bootstrap's own points at 1240x376, the essential
+    matrix, inlier mask and count of ``essential_ransac`` with the route equal to those
+    with ``torch.linalg.svd`` (eight-point and five-point); a bootstrap whose SVDs are
+    capped at one sweep raises at its read-back. Returns the kernel line's row."""
+    import torch
+
+    from lcvo_tpu_torch.core import geometry as geo
+    from lcvo_tpu_torch.ops import epipolar
+    from lcvo_tpu_torch.ops import svd as svd_mod
+    from lcvo_tpu_torch.ops.svd import SITES as SVD_SITES
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases, worst = {}, {"s_rel": 0.0, "recon_rel": 0.0, "vectors": 0.0, "max_abs_err": 0.0}
+    for site, shape, full in SVD_SHAPES:
+        A = torch.randn(shape, generator=gen, device="cuda")
+        got = svd_mod.svd(A, full, site=site)
+        want = svd_mod.svd_plain(A, full)
+        err = _svd_errors(site, A, got, want)
+        bits = all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+                   for x, y in zip(got, want))
+        err["max_abs_err"] = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        B = A.shape[0] if A.dim() == 3 else 1
+        bound, by = _svd_bound(B, *shape[-2:])
+        cases[site] = {"shape": list(shape), "full_matrices": full, **err, "bits_equal": bits,
+                       "ms": graph_ms(lambda: svd_mod.svd(A, full, site=site)),
+                       "plain_ms": _eager_ms(lambda: svd_mod.svd_plain(A, full), n=50),
+                       "bound_ms": bound, "bound_by": by}
+        for k in worst:
+            worst[k] = max(worst[k], err[k])
+    bad = {s: c for s, c in cases.items() if not (c["s_rel"] <= SVD_S_REL and
+                                                 c["recon_rel"] <= SVD_RECON_REL and
+                                                 c["vectors"] <= SVD_VEC)}
+
+    # essential_ransac on a bootstrap's points, with the route and with torch.linalg.svd
+    ransac = {}
+    for solver, c in (("eight_point", cfg), ("five_point", ref_cfg)):
+        vo = VisualOdometry(c, seq.K, device="cuda")
+        gap = c.bootstrap.frame_gap
+        imgs = [vo._frame(f).to(torch.float32) for f in frames[: gap + 1]]
+        pyrs = [vo._pyramid(im) for im in imgs]
+        pts0, ok = vo._detect0(imgs[0])
+        pts = pts0
+        for i in range(gap):
+            pts, ok = vo._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
+        Kt = torch.as_tensor(np.asarray(seq.K, np.float32), device="cuda")
+        x0, x1 = geo.normalize_points(pts0, Kt), geo.normalize_points(pts, Kt)
+        outs = []
+        for route in (svd_mod.svd, lambda A, full_matrices=True, *, site:
+                      svd_mod.svd_plain(A, full_matrices)):
+            saved, svd_mod.svd = svd_mod.svd, route
+            try:
+                g = torch.Generator(device="cuda").manual_seed(c.seed)
+                outs.append(epipolar.essential_ransac(
+                    g, x0, x1, ok, thresh=c.ransac.e_thresh_px / float(seq.K[0, 0]),
+                    n_hyp=c.ransac.e_hypotheses, solver=solver))
+            finally:
+                svd_mod.svd = saved
+        (E, inl, n), (E0, inl0, n0) = outs
+        ransac[solver] = {"E_equal": bool(torch.equal(E, E0)), "inliers_equal": bool(torch.equal(inl, inl0)),
+                          "n_inl": int(n), "n_inl_plain": int(n0)}
+
+    # forced failures: how many of the eight-point batch each sweep cap leaves
+    # unconverged, as the record counts them; then a bootstrap under SVD_FORCED_SWEEPS
+    # raises at its read-back, naming the call site (eager: a graph keeps the cap it was
+    # captured with)
+    A = torch.randn(SVD_SHAPES[0][1], generator=gen, device="cuda")
+    caps = {}
+    for cap in range(1, 9):
+        svd_mod.reset("cuda")
+        with svd_mod.sweep_cap(cap):
+            svd_mod.svd(A, False, site="eight_point")
+        caps[cap] = int(svd_mod.record("cuda")[SVD_SITES.index("eight_point"), 0])
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    try:
+        with disable_graphs(), svd_mod.sweep_cap(SVD_FORCED_SWEEPS):
+            vo.bootstrap(list(frames[: cfg.bootstrap.frame_gap + 1]))
+        forced = "no error"
+    except svd_mod.SVDNotConverged as e:
+        forced = str(e)
+    svd_mod.reset("cuda")
+
+    out = {"cases": cases, "worst": worst, "limits": {"s_rel": SVD_S_REL, "recon_rel": SVD_RECON_REL,
+                                                      "vectors": SVD_VEC},
+           "essential_ransac_route_vs_torch": ransac,
+           "unconverged_of_512_by_sweep_cap": caps,
+           f"bootstrap_at_sweep_cap_{SVD_FORCED_SWEEPS}": forced}
+    _say("[svd] " + json.dumps(out))
+    if bad:
+        raise AssertionError(f"[svd] the route leaves torch.linalg.svd at {bad}")
+    if not all(r["E_equal"] and r["inliers_equal"] and r["n_inl"] == r["n_inl_plain"]
+               for r in ransac.values()):
+        raise AssertionError(f"[svd] essential_ransac differs with the route: {ransac}")
+    if forced == "no error":
+        raise AssertionError(f"[svd] a bootstrap capped at {SVD_FORCED_SWEEPS} Jacobi sweeps "
+                             f"did not raise")
+    main = cases["eight_point"]
+    return {"name": "svd", "route": "cuda", "source": "lcvo_tpu_torch/csrc/svd.cu",
+            "replaces": "lcvo_tpu/ops/epipolar.py:47 (jnp.linalg.svd, XLA; no Pallas kernel)",
+            "max_abs_err": worst["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["plain_ms"],
+            "ms_by_site": {s: c["ms"] for s, c in cases.items()},
+            "library_ms_by_site": {s: c["plain_ms"] for s, c in cases.items()},
+            "bound_ms_by_site": {s: c["bound_ms"] for s, c in cases.items()}}
+
+
+def bootstrap_phase(tag: str, cfg, seq, frames) -> dict:
+    """``[bootstrap:<tag>]``: the bootstrap of ``cfg`` on the first ``frame_gap + 1``
+    frames, graphed (a fresh host loop, so its first bootstrap captures the pieces'
+    graphs) and under ``disable_graphs()`` (a second host loop from the same seed): the
+    state after it (R and t among its tensors) and the inlier count equal bit for bit,
+    launches equal; no host sync inside the replays of the pieces (the bootstrap's own
+    read-back comes after them); wall seconds of the first bootstrap and of
+    ``BOOT_REPS`` warm ones each way, the replayed pieces alone (what is left is the
+    eager assembly), the graphs, their capture and instantiation seconds, nodes and
+    pool bytes."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    burst = list(frames[: cfg.bootstrap.frame_gap + 1])
+    got = {}
+    for name in ("graphed", "eager"):
+        vo = VisualOdometry(cfg, seq.K, device="cuda")
+        with disable_graphs() if name == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            n = vo.bootstrap(burst)
+            first = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            state = _bits(vo.chunk_carry())
+            R, t = _bits(vo.state.R), _bits(vo.state.t)
+            stats = vo.graph_stats()
+            warm = []
+            for _ in range(BOOT_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vo.bootstrap(burst)
+                warm.append(time.perf_counter() - t0)
+        got[name] = {"vo": vo, "n": n, "first_s": first, "warm_s": warm, "launches": launches,
+                     "state": state, "R": R, "t": t, "stats": stats}
+    g, e = got["graphed"], got["eager"]
+    equal = {"state": _same_bits(g["state"], e["state"]), "R": _same_bits(g["R"], e["R"]),
+             "t": _same_bits(g["t"], e["t"]), "n_inl": g["n"] == e["n"],
+             "launches": g["launches"] == e["launches"]}
+
+    # the pieces alone, replayed: no host sync inside them, and their wall time
+    vo = g["vo"]
+    imgs = [vo._frame(f).to(torch.float32) for f in burst]
+    captures = sum(c.captures() for c in vo._compiled())
+
+    def pieces():
+        pyrs = [vo._pyramid(im) for im in imgs]
+        if vo._match is not None:
+            f0, f1 = vo._sift(imgs[0]), vo._sift(imgs[-1])
+            idx, ok = vo._match(f0.desc, f0.valid, f1.desc, f1.valid)
+            pts0, pts = f0.pts, f1.pts[idx]
+        else:
+            pts0, ok = vo._detect0(imgs[0])
+            pts = pts0
+            for i in range(len(imgs) - 1):
+                pts, ok = vo._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
+            if vo._sift is not None:
+                vo._sift(imgs[-1])
+        return vo._two_view(vo._gen, pts0, pts, ok)
+
+    def timed(fn, *args):       # one replay and its wall ms until the card has done it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    gen_state = vo._gen.get_state()
+    syncs = _host_syncs(pieces)
+    pieces_s, by_piece = [], {}
+    for _ in range(BOOT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pieces()
+        torch.cuda.synchronize()
+        pieces_s.append(time.perf_counter() - t0)
+        # the same replays one by one: where the bootstrap's time goes
+        pyrs = [timed(vo._pyramid, im) for im in imgs]
+        times = {"build_pyramid": sum(ms for _, ms in pyrs)}
+        pyrs = [p for p, _ in pyrs]
+        if vo._match is not None:
+            (f0, ms0), (f1, ms1) = timed(vo._sift, imgs[0]), timed(vo._sift, imgs[-1])
+            (idx, ok), times["mutual_match"] = timed(vo._match, f0.desc, f0.valid, f1.desc,
+                                                     f1.valid)
+            times["sift_features"] = ms0 + ms1
+            pts0, pts = f0.pts, f1.pts[idx]
+        else:
+            (pts0, ok), times["detect0"] = timed(vo._detect0, imgs[0])
+            pts, times["track_pair"] = pts0, 0.0
+            for i in range(len(imgs) - 1):
+                (pts, ok), ms = timed(vo._track_pair, pyrs[i], pyrs[i + 1], pts, ok)
+                times["track_pair"] += ms
+            if vo._sift is not None:
+                times["sift_features"] = timed(vo._sift, imgs[-1])[1]
+        times["two_view_init"] = timed(vo._two_view, vo._gen, pts0, pts, ok)[1]
+        for k, v in times.items():
+            by_piece.setdefault(k, []).append(v)
+    vo._gen.set_state(gen_state)
+    boot_syncs = _host_syncs(lambda: vo.bootstrap(burst))
+    if sum(c.captures() for c in vo._compiled()) != captures:
+        raise AssertionError(f"[bootstrap:{tag}] a warm bootstrap captured anew")
+
+    warm_g, warm_e = statistics.median(g["warm_s"]), statistics.median(e["warm_s"])
+    out = {"path": tag, "frames": len(burst), "graphed_equals_eager": equal,
+           "n_inl": g["n"], "first_s_graphed": g["first_s"], "first_s_eager": e["first_s"],
+           "warm_s_graphed": g["warm_s"], "warm_s_eager": e["warm_s"],
+           "warm_s_graphed_median": warm_g, "warm_s_eager_median": warm_e,
+           "speedup_warm": warm_e / warm_g,
+           "pieces_s_graphed_median": statistics.median(pieces_s),
+           "assembly_share_of_graphed": 1.0 - statistics.median(pieces_s) / warm_g,
+           "piece_ms_median": {k: statistics.median(v) for k, v in by_piece.items()},
+           **_graph_summary(g["stats"]), "launches": g["launches"],
+           "syncs_in_replays": syncs, "syncs_in_whole_bootstrap": boot_syncs}
+    _say(f"[bootstrap:{tag}] " + json.dumps(out))
+    if not all(equal.values()):
+        raise AssertionError(f"[bootstrap:{tag}] the graphed bootstrap left the eager one: {equal}")
+    if syncs:
+        raise AssertionError(f"[bootstrap:{tag}] the bootstrap's replays wait for the device at "
+                             f"{syncs}")
+    if g["launches"]["svd"] != SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]:
+        raise AssertionError(f"[bootstrap:{tag}] {g['launches']['svd']} SVD launches, "
+                             f"{SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]} expected")
+    return out
+
+
 def checkpoint_phase(tag: str, cfg, seq, frames, n_frames: int, want_poses) -> dict:
     """Checkpoint and resume on the card: run to a chunk boundary with
     ``checkpoint_every``, resume in a fresh ``VisualOdometry``, continue to ``n_frames``,
@@ -1116,25 +1443,32 @@ def _scale_seam(est: np.ndarray, flags=None, pre_stop: int | None = None) -> flo
     return float(np.median(post) / np.median(pre))
 
 
-def _watched(vo, tag: str) -> tuple[list, list]:
+def _watched(vo, tag: str) -> tuple[list, list, list]:
     """Wrap ``vo.bootstrap``: returns the lists it fills, the steps since the previous
-    bootstrap and each bootstrap's anchor (R0, t0; None for the first), and checks that
-    every bootstrap leaves the mirror at 0 and an empty window."""
-    segments, anchors = [], []
+    bootstrap, each bootstrap's anchor (R0, t0; None for the first) and each one's wall
+    seconds and the bootstrap graphs captured so far, and checks that every bootstrap leaves the
+    mirror at 0 and an empty window."""
+    import torch
+
+    segments, anchors, boots = [], [], []
     boot = vo.bootstrap
 
     def watched_bootstrap(*a, **k):     # steps since the previous bootstrap, and after it
         segments.append(vo._frame_idx)
         anchors.append(None if k.get("R0") is None else
                        np.concatenate([np.ravel(k["R0"]), np.ravel(k["t0"])]))
-        out = boot(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = boot(*a, **k)             # ends with its read-back
+        boots.append((time.perf_counter() - t0, sum(c.captures() for c in vo._compiled()
+                                                    if c.name not in ("process_frame", "ba_step"))))
         if vo.window is not None and (vo._frame_idx or bool(vo.window.kf_valid.any())):
             raise AssertionError(f"[{tag}] a bootstrap left frame_idx {vo._frame_idx} or a "
                                  f"keyframe in the window")
         return out
 
     vo.bootstrap = watched_bootstrap
-    return segments, anchors
+    return segments, anchors, boots
 
 
 def _recovery_eager(cfg, seq, frames, chunked: bool) -> dict:
@@ -1144,13 +1478,14 @@ def _recovery_eager(cfg, seq, frames, chunked: bool) -> dict:
     from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     vo = VisualOdometry(cfg, seq.K, device="cuda")
-    _, anchors = _watched(vo, "recovery:eager")
+    _, anchors, boots = _watched(vo, "recovery:eager")
     with disable_graphs():
         if chunked:
             vo.run_chunked(frames, chunk=CHUNK)
         else:
             vo.run(iter(frames), len(frames))
-    return {"rebootstraps": vo.n_rebootstraps, "anchors": anchors, "poses": np.asarray(vo.poses)}
+    return {"rebootstraps": vo.n_rebootstraps, "anchors": anchors, "poses": np.asarray(vo.poses),
+            "bootstrap_s": [b[0] for b in boots]}
 
 
 def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tuple:
@@ -1169,7 +1504,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
     n = len(frames)
     gap, skip = cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
     vo = VisualOdometry(cfg, seq.K, device="cuda")
-    segments, anchors = _watched(vo, tag)
+    segments, anchors, boots = _watched(vo, tag)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1210,11 +1545,19 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
                                "anchors_equal": same_anchors,
                                "poses_equal": bool(np.array_equal(np.asarray(vo.poses),
                                                                   eager["poses"]))}
+    # each bootstrap's wall seconds (the first pays the bootstrap graphs' captures), and
+    # the graphs captured after each: a re-bootstrap replays the first one's
+    out["bootstrap_s_graphed"] = [b[0] for b in boots]
+    out["bootstrap_s_eager"] = eager["bootstrap_s"]
+    out["graphs_after_each_bootstrap"] = [b[1] for b in boots]
     _say(f"[{tag}] " + json.dumps(out))
     if (n_reb != eager["rebootstraps"] or not same_anchors
             or not out["graphed_vs_eager"]["poses_equal"]):
         raise AssertionError(f"[{tag}] the graphed run differs from the eager one: "
                              f"{out['graphed_vs_eager']}")
+    if any(b[1] != boots[0][1] for b in boots):
+        raise AssertionError(f"[{tag}] a re-bootstrap captured new graphs: "
+                             f"{out['graphs_after_each_bootstrap']}")
     if est.shape != (n - gap, 3) or not np.all(np.isfinite(est)):
         raise AssertionError(f"[{tag}] trajectory shape {est.shape} or non-finite entries")
     if n_reb < 1 or out["health_end"] != 0 or not out["last_8_pose_ok"]:
@@ -2580,6 +2923,7 @@ def main() -> int:
     frames = render(seq, n_render)
     _say(f"[main] rendered {len(frames)} frames {frames.shape[1:]} uint8 in "
          f"{time.perf_counter() - t0:.1f} s")
+    srow = svd_phase(cfg, ref_cfg, seq, frames)
     runs = {}      # each main path's graphed run, for [graphs]
     # default path: every frame pair goes through the tracker (6 launches), bootstrap
     # hops included. Reference path: 6 KLT + 6 SIFT launches per step, and the SIFT
@@ -2593,6 +2937,7 @@ def main() -> int:
     # hops (6 launches each) and describes its last frame for the sift-sift table (6)
     by_path = {"default": main["launches"]["extract_blocks"],
                "reference": ref["launches"]["extract_blocks"]}
+    svd_by_path = {"default": main["launches"]["svd"], "reference": ref["launches"]["svd"]}
     floors = {"default": main["min_launches"], "reference": ref["min_launches"]}
     poses = {}
     for tag, c, bound in (("throughput", thr_cfg, THR_ATE_BOUND_M),
@@ -2602,6 +2947,7 @@ def main() -> int:
             f"main:{tag}", c, seq, frames, bound, 12 * (BA_FRAMES - 1 - gap) + 6 * gap + 6,
             args.profile, n_frames=BA_FRAMES)
         by_path[tag] = out["launches"]["extract_blocks"]
+        svd_by_path[tag] = out["launches"]["svd"]
         floors[tag] = out["min_launches"]
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
     # [graphs]: each path's graphed run against its eager run, exactly
@@ -2611,6 +2957,10 @@ def main() -> int:
     graphs_run_phase(cfg, seq, frames)
     graphed_chunk_syncs("default", cfg, seq, frames, N_FRAMES)
     graphed_chunk_syncs("turn_robust", turn_cfg, seq, frames, BA_FRAMES)
+    for tag, c in (("default", cfg), ("reference", ref_cfg), ("throughput", thr_cfg),
+                   ("turn_robust", turn_cfg),
+                   ("sift-mask", load_config(overrides=mode_overrides("sift-mask")))):
+        bootstrap_phase(tag, c, seq, frames)
     checkpoint_phase("checkpoint:turn_robust", turn_cfg, seq, frames, BA_FRAMES,
                      poses["turn_robust"])
     for mode, n_frames, jax_ate in MODES:
@@ -2620,6 +2970,7 @@ def main() -> int:
                                     args.profile, n_frames=n_frames)
         path = mode.replace("-", "_").replace("+", "_")
         by_path[path], floors[path] = out["launches"]["extract_blocks"], out["min_launches"]
+        svd_by_path[path] = out["launches"]["svd"]
     counted = {**recovery_phase(cfg, turn_cfg, seq, frames), **stress_phase(cfg),
                "longhorizon": longhorizon_phase(cfg)}
     render_phase(smi)
@@ -2651,9 +3002,13 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path",
             "sift_ms", "sift_plain_ms", "sift_bound_ms", "sift_ypad_ms")
     lkeys = keys[:12] + ("launches_per_batched_step", "ms_by_streams", "two_d_ms_one_stream")
+    srow["launches"] = sum(svd_by_path.values())
+    srow["launches_by_path"] = svd_by_path
+    skeys = keys[:12] + ("ms_by_site", "library_ms_by_site", "bound_ms_by_site")
     _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
          f"to the kernel line")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys}]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys},
+                                  {k: srow[k] for k in skeys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

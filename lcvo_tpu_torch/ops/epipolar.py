@@ -11,12 +11,22 @@ Sampson objective. Point inputs are normalized image coordinates; thresholds are
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.func import jacfwd
 
 from lcvo_tpu_torch.core import geometry as geo
+from lcvo_tpu_torch.core.constants import on_device
 from lcvo_tpu_torch.ops import ransac
+from lcvo_tpu_torch.ops import svd as svd_mod
 from lcvo_tpu_torch.ops.five_point import five_point
+
+
+# made on the device once (a host copy inside a step cannot be captured into a graph)
+_RANK2 = np.array([1.0, 1.0, 0.0], np.float32)
+_W = np.array([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]], np.float32)
+_EX = np.array([1.0, 0, 0], np.float32)
+_EY = np.array([0.0, 1, 0], np.float32)
 
 
 def _homogeneous(x: torch.Tensor) -> torch.Tensor:
@@ -39,24 +49,24 @@ def eight_point(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor | None = Non
     A = (h2[..., :, None] * h1[..., None, :]).reshape(*h1.shape[:-1], 9)
     if w is not None:
         A = A * w[..., None]
-    _, _, Vh = torch.linalg.svd(A, full_matrices=False)
+    _, _, Vh = svd_mod.svd(A, full_matrices=False, site="eight_point")
     e = Vh[..., -1, :]
     return e.reshape(*e.shape[:-1], 3, 3)
 
 
 def project_to_essential(E: torch.Tensor) -> torch.Tensor:
     """Project onto the essential manifold: singular values → (1, 1, 0)."""
-    U, _, Vh = torch.linalg.svd(E)
-    d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    U, _, Vh = svd_mod.svd(E, site="project_to_essential")
+    d = on_device(_RANK2, E.device).to(E.dtype)
     return U @ (d[:, None] * Vh)
 
 
 def decompose_essential(E: torch.Tensor):
     """E → four (R, t) candidates (cam1→cam2), ||t|| = 1. Returns R (4,3,3), t (4,3)."""
-    U, _, Vh = torch.linalg.svd(E)
+    U, _, Vh = svd_mod.svd(E, site="decompose_essential")
     U = U * torch.sign(torch.linalg.det(U))
     Vh = Vh * torch.sign(torch.linalg.det(Vh))
-    W = torch.tensor([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]], dtype=E.dtype, device=E.device)
+    W = on_device(_W, E.device).to(E.dtype)
     Ra = U @ W @ Vh
     Rb = U @ W.T @ Vh
     u3 = U[..., :, 2]
@@ -100,8 +110,8 @@ def refine_pose_sampson(R, t, x1, x2, w, iters: int = 8, damping: float = 1e-8):
     Jacobian is forward-mode autodiff of the residual vector (``torch.func.jacfwd``)."""
     h1 = _homogeneous(x1)
     h2 = _homogeneous(x2)
-    ex = torch.tensor([1.0, 0, 0], dtype=t.dtype, device=t.device)
-    ey = torch.tensor([0.0, 1, 0], dtype=t.dtype, device=t.device)
+    ex = on_device(_EX, t.device).to(t.dtype)
+    ey = on_device(_EY, t.device).to(t.dtype)
     eye5 = torch.eye(5, dtype=R.dtype, device=R.device)
     for _ in range(iters):
         t = _unit(t)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from lcvo_tpu_torch.core.constants import on_device
+from lcvo_tpu_torch.ops import svd as svd_mod
 
 # ---------------------------------------------------------------------------
 # Monomial bases and multiplication tensors (numpy, built once at import; copied to
@@ -192,7 +193,7 @@ def five_point(x1: torch.Tensor, x2: torch.Tensor):
     h1 = torch.cat([x1, ones], dim=-1)
     h2 = torch.cat([x2, ones], dim=-1)
     A = (h2[..., :, None] * h1[..., None, :]).reshape(*h1.shape[:-2], 5, 9)
-    _, _, Vh = torch.linalg.svd(A, full_matrices=True)         # Vh (..., 9, 9)
+    _, _, Vh = svd_mod.svd(A, full_matrices=True, site="five_point")  # Vh (..., 9, 9)
     basis = Vh[..., 5:9, :].reshape(*Vh.shape[:-2], 4, 3, 3)   # E1..E4
     Ec = torch.movedim(basis, -3, -1)                          # (..., 3, 3, 4)
 

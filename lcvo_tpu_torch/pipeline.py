@@ -14,9 +14,9 @@ with no host round trip: the host keeps a mirror of ``state.frame_idx`` and deci
 cadence from it. The host loop (:class:`VisualOdometry`) reads results back once per
 chunk, performs re-bootstrap recovery when the ``health`` counter says tracking
 collapsed, and saves and resumes checkpoints. On the card it replays the per-frame step
-and the keyframe step as CUDA graphs with the state donated (``utils/graphs.py``, where
-the JAX package jits them); the ``make_*`` functions return the eager steps, as the
-JAX package's return unjitted ones.
+and the keyframe step as CUDA graphs with the state donated, and the bootstrap's pieces
+as CUDA graphs of their own (``utils/graphs.py``, where the JAX package jits them); the
+``make_*`` functions return the eager steps, as the JAX package's return unjitted ones.
 
 Ported: the ``shi-mask``/``harris-mask``/``sift-mask``/``sift-sift`` candidate modes,
 the KLT and the SIFT-matching bootstrap, the eight-point and five-point essential
@@ -40,6 +40,7 @@ from lcvo_tpu_torch.core.state import resolve_device
 from lcvo_tpu_torch.frontend import sift as sift_mod
 from lcvo_tpu_torch.frontend.match import knn_match_ratio, mutual_match
 from lcvo_tpu_torch.ops import epipolar, harris, pnp
+from lcvo_tpu_torch.ops import svd as svd_mod
 from lcvo_tpu_torch.ops.klt import pyramidal_klt
 from lcvo_tpu_torch.ops.pyramid import build_pyramid
 from lcvo_tpu_torch.solve.ba import window as win_mod
@@ -463,11 +464,11 @@ class VisualOdometry:
     """Host-side loop: owns the compiled steps, the bootstrap state machine and failure
     recovery. ``device`` defaults to CUDA; the CPU runs only when asked for.
 
-    On the card the per-frame step and the keyframe step are CUDA graphs
-    (:func:`lcvo_tpu_torch.utils.graphs.compile_step`, where the JAX package applies
-    ``jax.jit``), captured at their first call and replayed after it, with the state
-    donated when ``cfg.runtime.donate_state`` is set; ``graphs.disable_graphs()`` runs
-    them eagerly. The state and the window are then the graphs' buffers: every bootstrap,
+    On the card the per-frame step, the keyframe step and the bootstrap's pieces are CUDA
+    graphs (:func:`lcvo_tpu_torch.utils.graphs.compile_step`, where the JAX package
+    applies ``jax.jit``), captured at their first call and replayed after it, the step's
+    state donated when ``cfg.runtime.donate_state`` is set; ``graphs.disable_graphs()``
+    runs them eagerly. The state and the window are then the graphs' buffers: every bootstrap,
     :meth:`set_chunk_carry` and :meth:`resume` write into them and never rebind them, so
     a re-bootstrap mid-run replays the same graphs. On the CPU the steps run eagerly."""
 
@@ -476,8 +477,6 @@ class VisualOdometry:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = np.asarray(K, np.float64)
-        self._detect0, self._track_pair, self._two_view = make_bootstrap_fns(
-            cfg, self.K, self.device)
         self.state: st.VOState | None = None
         # counterpart of jax.random.PRNGKey(cfg.seed): one explicit generator
         self._gen = torch.Generator(device=self.device)
@@ -503,24 +502,62 @@ class VisualOdometry:
 
     def _compile_steps(self, capture=None):
         """The per-frame step (``frame_step`` form) and, with BA, the keyframe step on
-        the ``(state, window)`` carry, compiled: one memory pool for both, the state
-        donated as ``cfg.runtime.donate_state`` says. The per-frame step takes the
-        generator as an argument, and the graph registers it from there. ``capture`` is
+        the ``(state, window)`` carry, compiled, the state donated as
+        ``cfg.runtime.donate_state`` says; and the bootstrap's pieces as the JAX package
+        jits them, nothing donated: ``detect0``, ``track_pair`` (one graph per hop, so a
+        burst of any length replays the same graph), ``two_view_init``, the pyramid of
+        one frame and, where the bootstrap describes frames, the SIFT features of one
+        frame and (SIFT init) ``mutual_match``. One memory pool for all of them: they
+        never run at the same time. The generator is an argument of the per-frame step
+        and of ``two_view_init``, and each graph registers it from there. ``capture`` is
         the CPU tests' stand-in for the CUDA capture (``utils/graphs.py``)."""
+        cfg = self.cfg
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        kw = dict(donate=self.cfg.runtime.donate_state, pool=pool, capture=capture)
+        kw = dict(donate=cfg.runtime.donate_state, pool=pool, capture=capture)
         self._process = graphs.compile_step(
-            frame_step(make_process_frame(self.cfg, self.K, self.device)),
+            frame_step(make_process_frame(cfg, self.K, self.device)),
             name="process_frame", **kw)
         self._ba = None
         if self.window is not None:
             self._ba = graphs.compile_step(
-                carry_step(make_ba_step(self.cfg, self.K, self.device)), name="ba_step", **kw)
+                carry_step(make_ba_step(cfg, self.K, self.device)), name="ba_step", **kw)
+
+        boot = dict(donate=False, pool=pool, capture=capture)
+        detect0, track_pair, two_view_init = make_bootstrap_fns(cfg, self.K, self.device)
+        self._detect0 = graphs.compile_step(detect0, name="detect0", **boot)
+        self._track_pair = graphs.compile_step(track_pair, name="track_pair", **boot)
+        self._two_view = graphs.compile_step(two_view_init, name="two_view_init", **boot)
+        pyr_dtype = getattr(torch, cfg.runtime.dtype)
+
+        def pyramid(image):
+            return build_pyramid(image.to(pyr_dtype), cfg.klt.levels)
+
+        def sift_features(image):
+            return _sift_features(cfg, image)
+
+        def match(desc_a, valid_a, desc_b, valid_b):
+            return mutual_match(desc_a, valid_a, desc_b, valid_b,
+                                ratio=cfg.descriptor.ratio_thresh)
+
+        self._pyramid = graphs.compile_step(pyramid, name="build_pyramid", **boot)
+        sift_init = cfg.bootstrap.init_method == "sift"
+        self._sift = self._match = None
+        if sift_init or cfg.find_new_candidates_method == "sift-sift":
+            self._sift = graphs.compile_step(sift_features, name="sift_features", **boot)
+        if sift_init:
+            self._match = graphs.compile_step(match, name="mutual_match", **boot)
+
+    def _compiled(self) -> list:
+        """Every compiled step of this host loop."""
+        return [c for c in (self._process, self._ba, self._pyramid, self._detect0,
+                            self._track_pair, self._two_view, self._sift, self._match)
+                if c is not None]
 
     def graph_stats(self) -> dict:
-        """The compiled steps' graphs (warm-up, capture and instantiation seconds, nodes,
-        replays, launches per replay) and the bytes of their shared memory pool."""
-        steps = [c for c in (self._process, self._ba) if c is not None]
+        """The compiled steps' graphs, the bootstrap's among them (warm-up, capture and
+        instantiation seconds, nodes, replays, launches per replay), and the bytes of
+        their shared memory pool."""
+        steps = self._compiled()
         return {"graphs": [g for c in steps for g in c.stats()],
                 "pool_bytes": max((c.pool_bytes() for c in steps), default=0)}
 
@@ -535,20 +572,25 @@ class VisualOdometry:
 
         Optional (R0, t0) anchors the first bootstrap camera at a known world pose
         (re-bootstrap keeps the map in one frame); optional ``scale`` sets the metric
-        length of the two-view baseline. Returns the essential-matrix inlier count."""
+        length of the two-view baseline. Returns the essential-matrix inlier count.
+
+        On the card the pieces replay their graphs (``_compile_steps``); what follows
+        ``two_view_init`` (anchoring, the track table, the state) runs eagerly, as in the
+        JAX package, and writes into the step's buffers. One read-back, after the state
+        is assembled and before it is written: the camera centers, the inlier count and
+        the SVDs' convergence record, which raises if one of them failed."""
         cfg = self.cfg
         dev = self.device
+        svd_mod.reset(dev)
         imgs = [self._frame(f).to(torch.float32) for f in frames]
-        pyr_dtype = getattr(torch, cfg.runtime.dtype)
-        pyrs = [build_pyramid(im.to(pyr_dtype), cfg.klt.levels) for im in imgs]
+        pyrs = [self._pyramid(im) for im in imgs]
         f1 = None
         if cfg.bootstrap.init_method == "sift":
             # reference init: SIFT detect+describe both endpoint frames, mutual
             # nearest-neighbour match with Lowe's ratio
-            f0 = _sift_features(cfg, imgs[0])
-            f1 = _sift_features(cfg, imgs[-1])
-            idx, ok = mutual_match(f0.desc, f0.valid, f1.desc, f1.valid,
-                                   ratio=cfg.descriptor.ratio_thresh)
+            f0 = self._sift(imgs[0])
+            f1 = self._sift(imgs[-1])
+            idx, ok = self._match(f0.desc, f0.valid, f1.desc, f1.valid)
             pts0 = f0.pts
             pts = f1.pts[idx]
         else:
@@ -572,19 +614,20 @@ class VisualOdometry:
         X_w = geo.se3_apply(Ri, ti, X)
 
         state = st.make_vo_state(cfg, tuple(imgs[0].shape), dev)
-        self._frame_idx = 0
-        if self.window is not None:
-            # stale keyframes must not constrain the re-initialized map
-            self.window = graphs.place(
-                self.window, win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, dev))
         Kt = _K_tensor(self.K, dev)
         boot_ang = geo.bearing_angle(R0t, t0t, R_last, t_last, pts0, pts, Kt)
         tracks = st.insert_into_tracks(state.tracks, pts, X_w, good,
                                        F_new=pts0, R_f_new=R0t, t_f_new=t0t, ang_new=boot_ang)
+        # the one read-back (f64 holds the f32 centers and the counts exactly)
+        rec = svd_mod.record(dev)
+        back = [geo.camera_center(R_last, t_last), geo.camera_center(R0t, t0t),
+                n_inl.reshape(1)] + ([] if rec is None else [rec.reshape(-1)])
+        host = torch.cat([x.to(torch.float64) for x in back]).cpu().numpy()
+        if rec is not None:
+            svd_mod.raise_if_failed(host[7:])
+        c_last, c0, n = host[0:3].astype(np.float32), host[3:6].astype(np.float32), int(host[6])
         # seed the constant-velocity model with the bootstrap window's mean per-frame
         # translation
-        c_last = geo.camera_center(R_last, t_last).cpu().numpy()
-        c0 = geo.camera_center(R0t, t0t).cpu().numpy()
         c_prev = c_last - (c_last - c0) / max(len(imgs) - 1, 1)
         prev_t = -(R_last @ torch.as_tensor(c_prev.astype(np.float32), device=dev))
         state = state._replace(
@@ -603,11 +646,15 @@ class VisualOdometry:
             # the first step filters already-seen keypoints instead of flooding the
             # candidate set
             if f1 is None:
-                f1 = _sift_features(cfg, imgs[-1])
+                f1 = self._sift(imgs[-1])
             state = state._replace(prev_desc=f1.desc, prev_desc_valid=f1.valid)
+        self._frame_idx = 0
+        if self.window is not None:
+            # stale keyframes must not constrain the re-initialized map
+            self.window = graphs.place(
+                self.window, win_mod.make_window(cfg.ba.window, cfg.state.max_tracks, dev))
         # into the graphs' buffers: a re-bootstrap replays the same graphs
         self.state = graphs.place(self.state, state)
-        n = int(n_inl)
         if n < cfg.bootstrap.min_matches:
             warnings.warn(
                 f"weak bootstrap: {n} essential-matrix inliers < "
