@@ -35,8 +35,13 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    five-point null space as its projector), and whether every bit agrees; each replayed
    in a CUDA graph beside ``torch.linalg.svd``'s eager time and the bound; on the
    bootstrap's own points (eight-point and five-point) ``essential_ransac``'s essential
-   matrix, inliers and count equal with either; the unconverged matrices of a batch by
-   sweep cap, and a bootstrap under a cap that leaves some raises at its read-back.
+   matrix, inliers and count equal with either. Then the failure semantics, JAX's: a
+   matrix whose SVD fails is NaN and nothing raises. By sweep cap, the matrices of a
+   batch cuSOLVER flags, the record's count of them, and exactly those NaN; a NaN and an
+   inf matrix NaN too; a bootstrap under ``SVD_FORCED_SWEEPS`` returns (0 inliers, a NaN
+   pose: a NaN hypothesis wins the MSAC argmin, as in the JAX package), each SVD call's
+   NaN matrices those flagged or not finite, graphed = eager bit for bit (the graphs
+   captured under the cap); ``run`` with its first bootstrap capped extends the window.
 4. Main paths, on the same 42 synthetic corridor frames at 1240x376, each with the
    launch counters set to 0 just before and read just after, each through
    ``VisualOdometry(cfg, K, device="cuda").run_chunked(frames, chunk=16)`` (bootstrap,
@@ -143,9 +148,15 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    host sync, its time beside ``ba_solve``'s; ``knn_match_ratio_sharded`` at
    ``DIST_MATCH`` equal to ``knn_match_ratio`` exactly; the streams chunk step of
    ``[streams]`` at S = 8 through the mesh equal to its run without one exactly, its
-   layered launches counted (``launches_by_path.streams_mesh_S8``). Then ``DIST_RANKS``
+   layered launches counted (``launches_by_path.streams_mesh_S8``). The sharded BA, the
+   sharded matcher and the mesh ``make_multistream_step`` (its ``agg`` summed inside its
+   graph) run as CUDA graphs with their NCCL collectives: each held to its run under
+   ``disable_graphs()`` bit for bit, reported replayed, with no host sync in a replay,
+   its graph's nodes, capture and instantiation seconds, ms per call graphed and eager
+   and host ms per replay. Then ``DIST_RANKS``
    gloo ranks on the one card, each a process of its own with CUDA tensors: the sharded BA
-   within the ``ba_solve`` line, the matcher exact, and ``tools/port_dryrun_multirank.py
+   within the ``ba_solve`` line, the matcher exact, both eager (not replayed: gloo's
+   collectives cannot be captured), and ``tools/port_dryrun_multirank.py
    --device cuda --backend gloo``. NCCL holds one rank per card, so the two ranks check
    the cross-rank arithmetic and give no speed figure.
 12. Candidate modes (``[main:sift-mask]``, ``[main:harris-mask]``, ``[main:shi-mask+ba]``):
@@ -336,6 +347,7 @@ SVD_PER_BOOTSTRAP = {"eight_point": 4, "five_point": 3}
 # torch 2.11.0+cu128, cuSOLVER's batched routine flagged none of a random eight-point
 # batch at caps 1-4, 351 of 512 at 5 and 161 at 6 ([svd]'s own count, printed each run)
 SVD_FORCED_SWEEPS = 5
+SVD_RUN_FRAMES = 16       # run() from a bootstrap under SVD_FORCED_SWEEPS
 BOOT_REPS = 3             # warm bootstraps timed per path in [bootstrap:*]
 RECOVERY_FRAMES = 64
 RECOVERY_BURST = (28, 31)
@@ -1126,6 +1138,124 @@ def _svd_errors(site: str, A, got, want) -> dict:
     return {"s_rel": s_rel, "recon_rel": recon, "vectors": vec}
 
 
+def _nan_bits_equal(a, b) -> bool:
+    """Two tensor tuples equal bit for bit, NaN included."""
+    import torch
+
+    return all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _svd_failures(cfg, seq, frames, gen) -> dict:
+    """The SVD failure semantics on the card (JAX's: a failed matrix is NaN, nothing
+    raises). At each sweep cap, on one eight-point batch: the matrices cuSOLVER flags
+    (``info != 0``), the record's count and whether exactly those come back NaN. A batch
+    with a NaN and an inf matrix: their codes, and both NaN. Then the default bootstrap
+    under ``SVD_FORCED_SWEEPS``, eager with every SVD call's codes kept: it returns, each
+    call's NaN matrices are those flagged or not finite, the record counts the
+    eight-point fit's flagged ones; the same bootstrap graphed (its graphs captured
+    under the cap, which a graph keeps) equal to it bit for bit; and ``run`` (eager) with
+    its first bootstrap capped extends the window, as the JAX loop does."""
+    import torch
+
+    from lcvo_tpu_torch.ops import svd as svd_mod
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    eight = svd_mod.SITES.index("eight_point")
+    A = torch.randn(SVD_SHAPES[0][1], generator=gen, device="cuda")
+    caps, bad = {}, []
+    for cap in range(1, 9):
+        svd_mod.reset("cuda")
+        with svd_mod.sweep_cap(cap):
+            flagged = svd_mod._gesvdj(A)[3] != 0
+            S = svd_mod.svd(A, False, site="eight_point")[1]
+        caps[cap] = {"flagged": int(flagged.sum()), "recorded": int(svd_mod.record("cuda")[eight, 0]),
+                     "nan_are_flagged": bool(torch.equal(torch.isnan(S).any(-1), flagged))}
+        if caps[cap]["recorded"] != caps[cap]["flagged"] or not caps[cap]["nan_are_flagged"]:
+            bad.append(f"cap {cap}: {caps[cap]}")
+    B = A.clone()
+    B[3, 1, 1], B[7, 0, 0] = float("nan"), float("inf")
+    info = svd_mod._gesvdj(B)[3]
+    got = svd_mod.svd(B, False, site="eight_point")
+    nonfinite = {"codes_of_nan_inf_matrices": info[[3, 7]].tolist(),
+                 "nan_matrices": torch.nonzero(torch.isnan(got[1]).any(-1)).flatten().tolist(),
+                 "equal_to_plain": _nan_bits_equal(got, svd_mod.svd_plain(B, False))}
+    if nonfinite["nan_matrices"] != [3, 7] or not nonfinite["equal_to_plain"]:
+        bad.append(f"non-finite input: {nonfinite}")
+
+    boot = list(frames[: cfg.bootstrap.frame_gap + 1])
+    calls, gesvdj, route = [], svd_mod._gesvdj, svd_mod._svd_cuda
+
+    def kept_codes(A):
+        out = gesvdj(A)
+        calls.append({"finite": torch.isfinite(A).flatten(-2).all(-1).reshape(-1),
+                      "flagged": out[3] != 0})
+        return out
+
+    def kept_nan(A, full, site):
+        out = route(A, full, site)
+        calls[-1].update(site=site, nan=torch.isnan(out[1]).reshape(calls[-1]["flagged"].shape[0], -1).any(-1))
+        return out
+
+    svd_mod._gesvdj, svd_mod._svd_cuda = kept_codes, kept_nan
+    try:
+        with disable_graphs(), svd_mod.sweep_cap(SVD_FORCED_SWEEPS):
+            vo_e = VisualOdometry(cfg, seq.K, device="cuda")
+            n_e = vo_e.bootstrap(boot)
+        rec_e = svd_mod.record("cuda").cpu()
+    finally:
+        svd_mod._gesvdj, svd_mod._svd_cuda = gesvdj, route
+    per_call = [{"site": c["site"], "flagged": int(c["flagged"].sum()),
+                 "not_finite": int((~c["finite"]).sum()),
+                 "nan_are_failed": bool(torch.equal(c["nan"], c["flagged"] | ~c["finite"]))}
+                for c in calls]
+    with svd_mod.sweep_cap(SVD_FORCED_SWEEPS):
+        vo_g = VisualOdometry(cfg, seq.K, device="cuda")
+        n_g = vo_g.bootstrap(boot)
+    fit = per_call[0]
+    capped = {"returned_n_inl": n_e, "svd_failures": vo_e.last_bootstrap_svd_failures,
+              "record_by_site": svd_mod.failures(rec_e), "calls": per_call,
+              "pose_is_nan": bool(torch.isnan(vo_e.state.R).all()),
+              "graphed_equal_eager": bool(n_g == n_e and _same_bits(_bits(vo_g.state), _bits(vo_e.state))
+                                          and vo_g.last_bootstrap_svd_failures
+                                          == vo_e.last_bootstrap_svd_failures)}
+    if not (fit["site"] == "eight_point" and fit["flagged"] > 0
+            and int(rec_e[eight, 0]) == fit["flagged"] and all(c["nan_are_failed"] for c in per_call)
+            and capped["graphed_equal_eager"]):
+        bad.append(f"capped bootstrap: {capped}")
+
+    # run(): the first bootstrap capped, the extended one not (eager: a graph would keep
+    # the cap for every bootstrap after)
+    vo = VisualOdometry(cfg, seq.K, device="cuda")
+    boots, bootstrap = [], vo.bootstrap
+
+    def first_capped(burst, *a, **k):
+        with svd_mod.sweep_cap(SVD_FORCED_SWEEPS if not boots else 0):
+            n = bootstrap(burst, *a, **k)
+        boots.append([len(burst), n, vo.last_bootstrap_svd_failures])
+        return n
+
+    vo.bootstrap = first_capped
+    with disable_graphs():
+        traj = vo.run(iter(frames), SVD_RUN_FRAMES)
+    gap = cfg.bootstrap.frame_gap
+    run = {"bootstraps": boots, "poses": len(traj), "first_pose_ok": vo.pose_ok_flags[0],
+           "later_poses_finite": bool(np.isfinite(np.stack(traj[1:])).all())}
+    if not (len(boots) == 2 and boots[0][:2] == [gap + 1, 0] and boots[0][2] > 0
+            and boots[1][0] == gap + 2 and boots[1][1] >= cfg.bootstrap.min_matches
+            and len(traj) == SVD_RUN_FRAMES - gap and not vo.pose_ok_flags[0]
+            and run["later_poses_finite"]):
+        bad.append(f"run from a capped bootstrap: {run}")
+    svd_mod.reset("cuda")
+    out = {"failed_of_512_by_sweep_cap": caps, "non_finite_input": nonfinite,
+           f"bootstrap_at_sweep_cap_{SVD_FORCED_SWEEPS}": capped,
+           f"run_first_bootstrap_at_cap_{SVD_FORCED_SWEEPS}": run}
+    if bad:
+        raise AssertionError(f"[svd] failure semantics: {bad}\n{json.dumps(out, default=str)}")
+    return out
+
+
 def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
     """``[svd]``: the SVD route (``ops/svd.py`` + ``csrc/svd.cu``) against
     ``torch.linalg.svd`` on the card at the four call sites' shapes (singular values,
@@ -1133,16 +1263,14 @@ def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
     replayed in a CUDA graph beside ``torch.linalg.svd``'s eager time (it cannot be
     captured) and the bound; on a bootstrap's own points at 1240x376, the essential
     matrix, inlier mask and count of ``essential_ransac`` with the route equal to those
-    with ``torch.linalg.svd`` (eight-point and five-point); a bootstrap whose SVDs are
-    capped at one sweep raises at its read-back. Returns the kernel line's row."""
+    with ``torch.linalg.svd`` (eight-point and five-point); then the failure semantics
+    (:func:`_svd_failures`). Returns the kernel line's row."""
     import torch
 
     from lcvo_tpu_torch.core import geometry as geo
     from lcvo_tpu_torch.ops import epipolar
     from lcvo_tpu_torch.ops import svd as svd_mod
-    from lcvo_tpu_torch.ops.svd import SITES as SVD_SITES
     from lcvo_tpu_torch.pipeline import VisualOdometry
-    from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, worst = {}, {"s_rel": 0.0, "recon_rel": 0.0, "vectors": 0.0, "max_abs_err": 0.0}
@@ -1194,40 +1322,16 @@ def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
         ransac[solver] = {"E_equal": bool(torch.equal(E, E0)), "inliers_equal": bool(torch.equal(inl, inl0)),
                           "n_inl": int(n), "n_inl_plain": int(n0)}
 
-    # forced failures: how many of the eight-point batch each sweep cap leaves
-    # unconverged, as the record counts them; then a bootstrap under SVD_FORCED_SWEEPS
-    # raises at its read-back, naming the call site (eager: a graph keeps the cap it was
-    # captured with)
-    A = torch.randn(SVD_SHAPES[0][1], generator=gen, device="cuda")
-    caps = {}
-    for cap in range(1, 9):
-        svd_mod.reset("cuda")
-        with svd_mod.sweep_cap(cap):
-            svd_mod.svd(A, False, site="eight_point")
-        caps[cap] = int(svd_mod.record("cuda")[SVD_SITES.index("eight_point"), 0])
-    vo = VisualOdometry(cfg, seq.K, device="cuda")
-    try:
-        with disable_graphs(), svd_mod.sweep_cap(SVD_FORCED_SWEEPS):
-            vo.bootstrap(list(frames[: cfg.bootstrap.frame_gap + 1]))
-        forced = "no error"
-    except svd_mod.SVDNotConverged as e:
-        forced = str(e)
-    svd_mod.reset("cuda")
-
+    forced = _svd_failures(cfg, seq, frames, gen)
     out = {"cases": cases, "worst": worst, "limits": {"s_rel": SVD_S_REL, "recon_rel": SVD_RECON_REL,
                                                       "vectors": SVD_VEC},
-           "essential_ransac_route_vs_torch": ransac,
-           "unconverged_of_512_by_sweep_cap": caps,
-           f"bootstrap_at_sweep_cap_{SVD_FORCED_SWEEPS}": forced}
+           "essential_ransac_route_vs_torch": ransac, **forced}
     _say("[svd] " + json.dumps(out))
     if bad:
         raise AssertionError(f"[svd] the route leaves torch.linalg.svd at {bad}")
     if not all(r["E_equal"] and r["inliers_equal"] and r["n_inl"] == r["n_inl_plain"]
                for r in ransac.values()):
         raise AssertionError(f"[svd] essential_ransac differs with the route: {ransac}")
-    if forced == "no error":
-        raise AssertionError(f"[svd] a bootstrap capped at {SVD_FORCED_SWEEPS} Jacobi sweeps "
-                             f"did not raise")
     main = cases["eight_point"]
     return {"name": "svd", "route": "cuda", "source": "lcvo_tpu_torch/csrc/svd.cu",
             "replaces": "lcvo_tpu/ops/epipolar.py:47 (jnp.linalg.svd, XLA; no Pallas kernel)",
@@ -2656,10 +2760,11 @@ def _dist_rank(dev, argv) -> None:
     import torch
     import torch.distributed as dist
 
-    from lcvo_tpu_torch.frontend.match import knn_match_ratio, knn_match_ratio_sharded
+    from lcvo_tpu_torch.frontend.match import (compiled_matcher, knn_match_ratio,
+                                               knn_match_ratio_sharded)
     from lcvo_tpu_torch.parallel.mesh import make_mesh
     from lcvo_tpu_torch.solve.ba.schur import BAProblem, ba_solve
-    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded
+    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded, compiled_solver
 
     src, out = argv
     d = np.load(src)
@@ -2670,11 +2775,21 @@ def _dist_rank(dev, argv) -> None:
     for tag, res in (("sharded", ba_solve_sharded(prob, mesh, **kw)), ("one", ba_solve(prob, **kw))):
         for f in res._fields:
             got[f"{tag}_{f}"] = getattr(res, f).cpu().numpy()
+    got["ba_replayed"] = np.array(compiled_solver(mesh, **kw).replayed)
     q, vq, t, vt = (torch.from_numpy(d[k]).to(dev) for k in ("dq", "vq", "dt", "vt"))
     for tag, (idx, ok) in (("sharded", knn_match_ratio_sharded(mesh, q, vq, t, vt)),
                            ("one", knn_match_ratio(q, vq, t, vt))):
         got[f"{tag}_idx"], got[f"{tag}_ok"] = idx.cpu().numpy(), ok.cpu().numpy()
+    got["match_replayed"] = np.array(compiled_matcher(mesh).replayed)
     np.savez(f"{out}_rank{dist.get_rank()}.npz", **got)
+
+
+def _eager(fn):
+    """``fn()`` with every compiled step eager."""
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    with disable_graphs():
+        return fn()
 
 
 def _dispatched_ops(fn) -> int:
@@ -2717,27 +2832,76 @@ def _gloo_ranks_check(scene: dict, match: dict, kw: dict) -> dict:
     same = all(np.array_equal(r[f"sharded_{f}"], ranks[0][f"sharded_{f}"]) for r in ranks for f in fields)
     match_ok = all(np.array_equal(r["sharded_idx"], r["one_idx"]) and np.array_equal(r["sharded_ok"], r["one_ok"])
                    for r in ranks)
+    replayed = any(bool(r["ba_replayed"]) or bool(r["match_replayed"]) for r in ranks)
     two.update({"ba_vs_ba_solve": err, "ba_line": BA_LINE, "ba_same_on_every_rank": same,
-                "match_equal": match_ok})
-    if bad or not same or not match_ok:
+                "match_equal": match_ok, "replayed": replayed})
+    if bad or not same or not match_ok or replayed:
         raise AssertionError(f"[dist] {DIST_RANKS} gloo ranks: {two}")
     return two
+
+
+def _graphed_vs_eager(call, compiled, reps: int = 5) -> dict:
+    """A compiled sharded call at a world of one NCCL rank: ``call()`` replayed (its
+    graph captured at an earlier call) against ``call()`` under ``disable_graphs()``,
+    bit for bit; whether it replayed; the host syncs inside a replay; its graph's nodes,
+    capture and instantiation seconds; ms per call each way (host clock around ``reps``
+    calls fenced by ``synchronize``, in turns graphed, eager, eager, graphed, medians);
+    and the host ms per replay (``reps`` back-to-back replays that nothing waits for)."""
+    import torch
+
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    call()
+    graphed = _bits(call())
+    replayed = compiled.replayed
+    with disable_graphs():
+        eager = _bits(call())
+    out = {"graphed_equal_eager": _same_bits(graphed, eager), "replayed": replayed,
+           "syncs_in_replay": _host_syncs(call)}
+    (g,) = compiled.stats()
+    out.update({k: g[k] for k in ("nodes", "warmup_s", "capture_s", "instantiate_s")})
+    times = {"graphed": [], "eager": []}
+    for _ in range(3):
+        for mode in ("graphed", "eager", "eager", "graphed"):
+            with disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) / reps * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    out.update({"ms_graphed": statistics.median(times["graphed"]),
+                "ms_eager": statistics.median(times["eager"]), "host_ms_per_replay": host})
+    if not (out["graphed_equal_eager"] and replayed and not out["syncs_in_replay"]):
+        raise AssertionError(f"[dist] a compiled sharded call at a world of one: {out}")
+    return out
 
 
 def _world_of_one_solvers(mesh, dev, scene: dict, match: dict, kw: dict) -> dict:
     """At one rank: the sharded BA equal to ``ba_solve`` and the sharded matcher equal to
     ``knn_match_ratio``, exactly; the BA with no host sync, its time beside ``ba_solve``'s
-    (host clock, in turns) and the operators each dispatches."""
+    (host clock, in turns) and the operators each dispatches. Both sharded calls are
+    CUDA graphs with their NCCL collectives: each held to its eager run
+    (:func:`_graphed_vs_eager`)."""
     import torch
     import torch.distributed as dist
 
-    from lcvo_tpu_torch.frontend.match import knn_match_ratio, knn_match_ratio_sharded
+    from lcvo_tpu_torch.frontend.match import (compiled_matcher, knn_match_ratio,
+                                               knn_match_ratio_sharded)
+    from lcvo_tpu_torch.parallel.mesh import capturable
     from lcvo_tpu_torch.solve.ba.schur import BAProblem, ba_solve
-    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded
+    from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded, compiled_solver
 
     one = {"backend": dist.get_backend(), "world": dist.get_world_size(),
            "mesh_shape": mesh.shape, "group_size": dist.get_world_size(mesh.group("data"))}
-    if one["backend"] != "nccl" or one["group_size"] != 1:
+    one["capturable"] = capturable(mesh, "data")
+    if one["backend"] != "nccl" or one["group_size"] != 1 or not one["capturable"]:
         raise AssertionError(f"[dist] a world of one on NCCL: {one}")
     prob = BAProblem(*(torch.from_numpy(scene[k]).to(dev) for k in ("R", "t", "X", "obs", "mask")))
     solvers = {"one": lambda: ba_solve(prob, **kw), "sharded": lambda: ba_solve_sharded(prob, mesh, **kw)}
@@ -2750,38 +2914,47 @@ def _world_of_one_solvers(mesh, dev, scene: dict, match: dict, kw: dict) -> dict
     syncs = _host_syncs(solvers["sharded"])
     if syncs:
         raise AssertionError(f"[dist] ba_solve_sharded waits for the device at {syncs}")
+    # ba_sharded_ms is the eager sharded solve beside the eager ba_solve;
+    # the graphed one is ba_sharded_graph's ms_graphed
+    timed = {"one": solvers["one"], "sharded": lambda: _eager(solvers["sharded"])}
     times = {"one": [], "sharded": []}
     for _ in range(3):
         for tag in ("one", "sharded", "sharded", "one"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(5):
-                solvers[tag]()
+                timed[tag]()
             torch.cuda.synchronize()
             times[tag].append((time.perf_counter() - t0) / 5 * 1e3)
     one.update({"ba": f"W={DIST_W} K={DIST_K} iters={kw['iters']}", "ba_equal_to_ba_solve": True,
                 "ba_cost0": float(a.cost0), "ba_cost": float(a.cost), "ba_host_syncs": 0,
                 "ba_sharded_ms": statistics.median(times["sharded"]),
                 "ba_solve_ms": statistics.median(times["one"]),
-                "ba_sharded_ops": _dispatched_ops(solvers["sharded"]),
-                "ba_solve_ops": _dispatched_ops(solvers["one"])})
+                "ba_sharded_ops": _dispatched_ops(lambda: _eager(solvers["sharded"])),
+                "ba_solve_ops": _dispatched_ops(solvers["one"]),
+                "ba_sharded_graph": _graphed_vs_eager(solvers["sharded"], compiled_solver(mesh, **kw))})
     q, vq, tq, vt = (torch.from_numpy(match[k]).to(dev) for k in ("dq", "vq", "dt", "vt"))
     (i1, o1), (i2, o2) = knn_match_ratio_sharded(mesh, q, vq, tq, vt), knn_match_ratio(q, vq, tq, vt)
     if not (torch.equal(i1, i2) and torch.equal(o1, o2)):
         raise AssertionError("[dist] world of one: knn_match_ratio_sharded differs from knn_match_ratio")
     one.update({"match": "x".join(map(str, DIST_MATCH)), "match_equal": True,
-                "match_ok": int(o1.sum())})
+                "match_ok": int(o1.sum()),
+                "match_sharded_graph": _graphed_vs_eager(
+                    lambda: knn_match_ratio_sharded(mesh, q, vq, tq, vt), compiled_matcher(mesh))})
     return one
 
 
 def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     """At one rank: the streams chunk step through the mesh, from the same carry and seed
-    as the S = 8 run of ``[streams]``, equal to it exactly, with its layered launches."""
+    as the S = 8 run of ``[streams]``, equal to it exactly, with its layered launches;
+    then the mesh ``make_multistream_step`` (its ``agg`` summed inside its graph) held to
+    its eager run (:func:`_graphed_vs_eager`)."""
     import torch
 
     from lcvo_tpu_torch import kernels
     from lcvo_tpu_torch.parallel import streams as ps
     from lcvo_tpu_torch.parallel.mesh import shard_batched_state
+    from lcvo_tpu_torch.utils.graphs import place
 
     vos, batch = run_max["vos"], run_max["batch"]
     S = len(vos)
@@ -2805,15 +2978,33 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
                              f"batched chunk step in {differ}")
     if launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * STREAMS_CHUNKS * CHUNK:
         raise AssertionError(f"[dist] streams through the mesh launched {launches}")
+    # the mesh step, its sum over ranks inside the graph on NCCL: from the streams'
+    # states, one frame, the generator reseeded before each call (the state copied in:
+    # the step donates it)
+    mstep = ps.make_multistream_step(cfg, seq.K, mesh=mesh, device="cuda")
+    states = shard_batched_state(ps.stack_streams([vo.state for vo in vos]), mesh)
+    image = shard_batched_state(batch[None, 0].expand(S, -1, -1), mesh)
+
+    def call():
+        gen.manual_seed(cfg.seed)
+        return mstep(place(None, states), image, gen)
+
+    graph = _graphed_vs_eager(call, mstep.compiled)
+    if not mstep.sum_in_graph:
+        raise AssertionError("[dist] the mesh step on NCCL sums its agg outside its graph")
+    _, res, agg = call()
     return {"streams": f"S={S} chunks={STREAMS_CHUNKS}x{CHUNK}", "streams_equal_to_batched": True,
-            "streams_layered_launches": launches["extract_blocks_layered"]}
+            "streams_layered_launches": launches["extract_blocks_layered"],
+            "mesh_step_sum_in_graph": True, "mesh_step_agg": {k: int(v) for k, v in agg.items()},
+            "mesh_step_pose_ok": int(res.pose_ok.sum()), "mesh_step_graph": graph}
 
 
 def dist_phase(cfg, seq, run_max: dict) -> dict:
     """``[dist]``: the NCCL probe; a world of one NCCL rank in this process (sharded BA =
     ``ba_solve`` and sharded matcher = ``knn_match_ratio`` exactly, the BA with no host
     sync and its time beside ``ba_solve``'s, the streams chunk step through the mesh =
-    the S = 8 run of ``[streams]`` exactly, with its layered launches); then
+    the S = 8 run of ``[streams]`` exactly, with its layered launches; the sharded BA,
+    matcher and mesh step replayed as graphs = eager bit for bit); then
     ``DIST_RANKS`` gloo ranks on this card (BA within the ``ba_solve`` line, matcher
     exact) and ``tools/port_dryrun_multirank.py`` on as many, which runs beside the
     untimed part. The group is destroyed at the end, and no process it started outlives it."""

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from lcvo_tpu_torch.parallel.mesh import all_gather
+from lcvo_tpu_torch.parallel.mesh import all_gather, compile_sharded
 
 
 def knn_match_ratio(desc_q: torch.Tensor, valid_q: torch.Tensor, desc_t: torch.Tensor,
@@ -55,13 +55,28 @@ def knn_match_ratio_sharded(mesh, desc_q: torch.Tensor, valid_q: torch.Tensor,
     all the queries and targets, matches its Nq/n query rows against all the targets
     with :func:`knn_match_ratio`, and the rows are gathered back, in order, on every
     rank. The targets are whole on every rank, so nothing is reduced. Nq must divide
-    into the axis size. Returns the same (idx, ok) as :func:`knn_match_ratio`."""
+    into the axis size. Returns the same (idx, ok) as :func:`knn_match_ratio`.
+
+    The local match and both gathers are one compiled step (:func:`compiled_matcher`),
+    as the JAX package jits its ``shard_map``: a CUDA graph on NCCL, eager on gloo."""
     n = mesh.shape[axis]
     nq = desc_q.shape[0]
     if nq % n:
         raise ValueError(f"query count {nq} does not divide into the {n} ranks of mesh "
                          f"axis {axis!r}")
-    m = nq // n
-    rows = slice(mesh.index(axis) * m, (mesh.index(axis) + 1) * m)
-    idx, ok = knn_match_ratio(desc_q[rows], valid_q[rows], desc_t, valid_t, ratio)
-    return all_gather(idx, mesh, axis), all_gather(ok, mesh, axis)
+    return compiled_matcher(mesh, ratio, axis)(desc_q, valid_q, desc_t, valid_t)
+
+
+def compiled_matcher(mesh, ratio: float = 0.8, axis: str = "data"):
+    """The compiled step :func:`knn_match_ratio_sharded` runs with these arguments, kept
+    by the mesh: ``step(desc_q, valid_q, desc_t, valid_t) -> (idx, ok)``;
+    ``step.replayed`` tells whether its last call replayed a graph."""
+    n, rank = mesh.shape[axis], mesh.index(axis)
+
+    def match(desc_q, valid_q, desc_t, valid_t):
+        m = desc_q.shape[0] // n
+        rows = slice(rank * m, (rank + 1) * m)
+        idx, ok = knn_match_ratio(desc_q[rows], valid_q[rows], desc_t, valid_t, ratio)
+        return all_gather(idx, mesh, axis), all_gather(ok, mesh, axis)
+
+    return compile_sharded(lambda: match, mesh, axis, ("knn_match_ratio_sharded", axis, ratio))

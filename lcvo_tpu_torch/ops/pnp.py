@@ -20,6 +20,7 @@ import torch
 from lcvo_tpu_torch.core import geometry as geo
 from lcvo_tpu_torch.core.constants import on_device as _const
 from lcvo_tpu_torch.ops import ransac
+from lcvo_tpu_torch.ops import svd as svd_mod
 
 _DK_ITERS = 40
 _DK_SEED = np.array([(0.4 + 0.9j) ** k for k in range(1, 5)], np.complex64)
@@ -54,12 +55,13 @@ def quartic_roots(coeffs: torch.Tensor) -> torch.Tensor:
 def _kabsch(Pc: torch.Tensor, Pw: torch.Tensor):
     """Rigid transform world→camera from 3 paired points: Pc ≈ R Pw + t.
 
-    Batched Kabsch via 3x3 SVD. Pc, Pw: (..., 3, 3) rows = points. The P3P path uses
+    Batched Kabsch via 3x3 SVD (``ops/svd.py``: a matrix whose SVD fails gives NaN, as
+    in the JAX package). Pc, Pw: (..., 3, 3) rows = points. The P3P path uses
     :func:`_triad_align` (no SVD); this is the least-squares alternative."""
     muc = torch.mean(Pc, dim=-2, keepdim=True)
     muw = torch.mean(Pw, dim=-2, keepdim=True)
     H = torch.einsum("...ni,...nj->...ij", Pw - muw, Pc - muc)
-    U, _, Vt = torch.linalg.svd(H)
+    U, _, Vt = svd_mod.svd(H, site="kabsch")
     d = torch.sign(torch.linalg.det((U @ Vt).transpose(-1, -2)))
     D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     # R maps world → camera: R = V diag(1,1,d) U^T (from H = U S V^T of the w→c covariance)

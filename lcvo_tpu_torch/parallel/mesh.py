@@ -14,7 +14,11 @@ data (SPMD):
   stream dim cut in equal parts along an axis), :func:`gather_batched_state` puts the
   parts back together on every rank, and :func:`psum` / :func:`all_gather` are the
   collectives the sharded solvers reduce and gather with (``lax.psum`` and the
-  ``out_specs`` of ``shard_map`` in the JAX package).
+  ``out_specs`` of ``shard_map`` in the JAX package);
+- :func:`compile_sharded` compiles a function whose collectives run on a mesh axis, as
+  the JAX package jits its ``shard_map`` calls: on NCCL its collectives are captured into
+  the CUDA graph with it (:func:`capturable`), on gloo it runs eagerly. A mesh keeps the
+  compiled steps of its sharded calls.
 
 A mesh needs a process group, so one process on one H100 is a world of one rank (NCCL
 holds one rank per device). On the CPU the tests start several ranks on gloo.
@@ -31,6 +35,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from lcvo_tpu_torch.core.state import resolve_device
+from lcvo_tpu_torch.utils.graphs import compile_step
 
 # how long a rank waits for the others at the rendezvous and in a collective
 TIMEOUT_S = 300
@@ -80,6 +85,7 @@ class Mesh:
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
         self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self._compiled: dict = {}       # compile_sharded's steps, by call and static arguments
 
     @property
     def shape(self) -> dict:
@@ -94,6 +100,28 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
         return self.device_mesh.get_local_rank(axis)
+
+
+def capturable(mesh: Mesh, axis: str = "data") -> bool:
+    """Whether the collectives of ``mesh``'s ``axis`` can be captured into a CUDA graph:
+    true for NCCL, whose tensors are on the card; false for gloo. The backend decides,
+    never a capture that failed."""
+    return dist.get_backend(mesh.group(axis)) == dist.Backend.NCCL
+
+
+def compile_sharded(make_fn, mesh: Mesh, axis: str, key: tuple):
+    """The compiled step (``utils/graphs.py``) of a sharded call whose collectives run on
+    ``mesh``'s ``axis``: ``make_fn()`` gives its function. Nothing is donated, as
+    ``jax.jit`` of a ``shard_map`` donates nothing. On NCCL it is captured with its
+    collectives (``thread_local`` capture mode, see ``utils/graphs.py``), on gloo it runs
+    eagerly; the step's ``replayed`` tells which ran. ``key`` names the call (its first
+    entry, the step's name) and its static arguments: the mesh keeps the step under it,
+    so every later call with that key replays its graphs."""
+    if key not in mesh._compiled:
+        mesh._compiled[key] = compile_step(make_fn(), donate=False, name=key[0],
+                                           eager=not capturable(mesh, axis),
+                                           capture_mode="thread_local")
+    return mesh._compiled[key]
 
 
 def make_mesh(n_devices: int | None = None, axis_names: tuple = ("data",),
@@ -162,11 +190,12 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on the leading dim in the order of
-    their coordinates, on every one of them."""
+    their coordinates, on every one of them: one collective into one buffer, which a
+    CUDA graph can hold."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x, group=mesh.group(axis))
-    return torch.cat(parts, dim=0)
+    out = x.new_empty((mesh.shape[axis] * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.group(axis))
+    return out
 
 
 def gather_batched_state(part, mesh: Mesh, axis: str = "data"):

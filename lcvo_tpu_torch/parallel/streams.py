@@ -45,8 +45,10 @@ Decisions, against the JAX package's batched step:
   (:func:`~lcvo_tpu_torch.parallel.mesh.shard_batched_state`), runs the vmapped step
   on its device and gets its part back. The one value that crosses ranks is ``agg``,
   summed over the mesh axis (the JAX package's replicated ``agg``). Without a mesh the
-  step is the batched step on one device. The sum over ranks runs after the replay,
-  outside the graph: a gloo collective cannot be captured.
+  step is the batched step on one device. On NCCL the sum over ranks is inside the
+  compiled step, captured with it, where the JAX package's ``out_shardings`` puts its
+  AllReduce; on gloo, whose collectives cannot be captured, it runs after the replay
+  (``parallel/mesh.py::capturable``).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from torch.utils._pytree import tree_map
 
 from lcvo_tpu_torch.core import state as st
 from lcvo_tpu_torch.core.state import resolve_device
-from lcvo_tpu_torch.parallel.mesh import mesh_from_config, psum
+from lcvo_tpu_torch.parallel.mesh import capturable, mesh_from_config, psum
 from lcvo_tpu_torch.pipeline import make_ba_step, make_process_frame
 from lcvo_tpu_torch.solve.ba import window as win_mod
 from lcvo_tpu_torch.utils.graphs import compile_step
@@ -139,10 +141,20 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
     ``agg`` holds the sums over the streams of all the ranks along ``axis``. When
     ``mesh`` is None and ``cfg.runtime.mesh_shape`` is set, the mesh comes from the
     config (:func:`lcvo_tpu_torch.parallel.mesh.mesh_from_config`) with its first axis
-    as the stream axis."""
+    as the stream axis.
+
+    ``step.compiled`` is the compiled step (its ``replayed``: whether the last call
+    replayed a graph) and ``step.sum_in_graph`` whether the sum over ranks is inside it
+    (a mesh on NCCL)."""
     dev = resolve_device(device)
     mesh, axis = _mesh_of(cfg, mesh, axis, dev)
     pf = make_process_frame(cfg, K, dev)
+    in_graph = mesh is not None and capturable(mesh, axis)
+
+    def fleet(agg):
+        # the fleet's sums: one collective for the four
+        total = psum(torch.stack(list(agg.values())), mesh, axis)
+        return dict(zip(agg, total.unbind()))
 
     def local(states, images, gen_or_samples):
         states, results = _vmapped_frame(pf, states, images, gen_or_samples)
@@ -152,19 +164,19 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
             "promoted": torch.sum(results.n_promoted),
             "pose_ok": torch.sum(results.pose_ok.to(torch.int32)),
         }
-        return states, results, agg
+        return states, results, fleet(agg) if in_graph else agg
 
     compiled = compile_step(local, donate=cfg.runtime.donate_state, pool=_pool(dev),
-                            name="multistream_step")
+                            name="multistream_step",
+                            capture_mode="thread_local" if in_graph else "global")
 
     def step(states, images, gen_or_samples):
         states, results, agg = compiled(states, images, gen_or_samples)
-        if mesh is not None:
-            # the fleet's sums: one collective for the four
-            total = psum(torch.stack(list(agg.values())), mesh, axis)
-            agg = dict(zip(agg, total.unbind()))
+        if mesh is not None and not in_graph:
+            agg = fleet(agg)
         return states, results, agg
 
+    step.compiled, step.sum_in_graph = compiled, in_graph
     return step
 
 

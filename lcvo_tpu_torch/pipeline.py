@@ -486,6 +486,8 @@ class VisualOdometry:
         self.pose_ok_flags: list[bool] = []     # per-entry health (False: held/weak pose)
         self.results: list = []
         self.n_rebootstraps = 0
+        # matrices whose SVD failed (NaN) in the last bootstrap, by ops/svd.py's record
+        self.last_bootstrap_svd_failures = 0
         # host mirror of state.frame_idx: process_frame adds 1 without condition and
         # every bootstrap starts again at 0, so the BA cadence is decided here and the
         # device is never asked (checked against it once per chunk)
@@ -578,7 +580,12 @@ class VisualOdometry:
         ``two_view_init`` (anchoring, the track table, the state) runs eagerly, as in the
         JAX package, and writes into the step's buffers. One read-back, after the state
         is assembled and before it is written: the camera centers, the inlier count and
-        the SVDs' convergence record, which raises if one of them failed."""
+        the SVDs' failure record, whose count goes to ``last_bootstrap_svd_failures``.
+
+        An SVD that fails gives NaN in its matrix and nothing raises, as in the JAX
+        package: a NaN hypothesis can win the MSAC argmin, and the bootstrap then
+        returns 0 inliers with a NaN pose, which the host loops treat as a weak
+        bootstrap (they extend or slide the window)."""
         cfg = self.cfg
         dev = self.device
         svd_mod.reset(dev)
@@ -619,12 +626,10 @@ class VisualOdometry:
         tracks = st.insert_into_tracks(state.tracks, pts, X_w, good,
                                        F_new=pts0, R_f_new=R0t, t_f_new=t0t, ang_new=boot_ang)
         # the one read-back (f64 holds the f32 centers and the counts exactly)
-        rec = svd_mod.record(dev)
         back = [geo.camera_center(R_last, t_last), geo.camera_center(R0t, t0t),
-                n_inl.reshape(1)] + ([] if rec is None else [rec.reshape(-1)])
+                n_inl.reshape(1), svd_mod.record(dev).reshape(-1)]
         host = torch.cat([x.to(torch.float64) for x in back]).cpu().numpy()
-        if rec is not None:
-            svd_mod.raise_if_failed(host[7:])
+        self.last_bootstrap_svd_failures = sum(svd_mod.failures(host[7:]).values())
         c_last, c0, n = host[0:3].astype(np.float32), host[3:6].astype(np.float32), int(host[6])
         # seed the constant-velocity model with the bootstrap window's mean per-frame
         # translation

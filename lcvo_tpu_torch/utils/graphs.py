@@ -37,8 +37,14 @@ graph:
   replay: the next replay overwrites the graph's own.
 - **Device rule.** CPU tensors run ``fn`` eagerly; so do CUDA tensors inside
   :func:`disable_graphs` (the counterpart of ``jax.disable_jit()``), which a caller asks
-  for to compare with the eager run. A capture that fails raises
+  for to compare with the eager run, and in a step made with ``eager=True`` (one whose
+  work the backend cannot capture: a gloo collective). A capture that fails raises
   :class:`GraphCaptureError` naming the operation; nothing falls back to eager.
+  ``replayed`` tells whether the last call replayed a graph.
+- **Collectives.** A step that holds an NCCL collective is captured with
+  ``capture_mode="thread_local"``: under CUDA's default ``global`` mode a CUDA call of
+  another thread (ProcessGroupNCCL's watchdog queries its events) breaks the capture.
+  The warm-up makes the communicator, outside the capture.
 - **Launch accounting.** ``kernels.LAUNCHES`` counts Python calls of a kernel's
   wrapper, and a replay passes no Python. So the wrapper takes back what the counters
   moved during the warm-up (copies whose results are dropped: set-up) and the capture
@@ -156,10 +162,11 @@ class _CudaGraphs:
     """Warm-up, capture and replay on a CUDA device; the graphs of one step share its
     capture stream and memory pool."""
 
-    def __init__(self, device: torch.device, pool):
+    def __init__(self, device: torch.device, pool, mode: str = "global"):
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
+        self.mode = mode
 
     def warmup(self, run) -> None:
         cur = torch.cuda.current_stream(self.device)
@@ -175,7 +182,7 @@ class _CudaGraphs:
             g.register_generator_state(gen)
         t0 = time.perf_counter()
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            g.capture_begin(pool=self.pool)
+            g.capture_begin(pool=self.pool, capture_error_mode=self.mode)
             try:
                 outs = body()
             except BaseException:
@@ -233,11 +240,15 @@ class _Entry:
 class CompiledStep:
     """``fn`` behind CUDA graphs; see the module docstring and :func:`compile_step`."""
 
-    def __init__(self, fn, donate=True, pool=None, name=None, capture=None):
+    def __init__(self, fn, donate=True, pool=None, name=None, capture=None, eager=False,
+                 capture_mode="global"):
         self.fn = fn
         self.donate = bool(donate)
         self.pool = pool
         self.name = name or getattr(fn, "__name__", "step")
+        self.eager = bool(eager)
+        self.capture_mode = capture_mode
+        self.replayed = False       # whether the last call replayed a graph
         self._capture_with = capture
         self._backends: dict = {}
         self._entries: dict = {}
@@ -246,8 +257,9 @@ class CompiledStep:
     def __call__(self, *args):
         leaves, spec = tree_flatten(args)
         tensors = [x for x in leaves if torch.is_tensor(x)]
-        if _disabled or (self._capture_with is None
-                         and not any(t.device.type == "cuda" for t in tensors)):
+        if _disabled or self.eager or (self._capture_with is None
+                                       and not any(t.device.type == "cuda" for t in tensors)):
+            self.replayed = False
             return self.fn(*args)
         devices = {t.device for t in tensors}
         if len(devices) != 1:
@@ -275,7 +287,7 @@ class CompiledStep:
         if self._capture_with is not None:
             return self._capture_with
         if device not in self._backends:
-            self._backends[device] = _CudaGraphs(device, self.pool)
+            self._backends[device] = _CudaGraphs(device, self.pool, self.capture_mode)
             self.pool = self._backends[device].pool
         return self._backends[device]
 
@@ -347,6 +359,7 @@ class CompiledStep:
         for k, n in entry.launches.items():
             kernels.LAUNCHES[k] += n
         entry.replays += 1
+        self.replayed = True
         leaves, spec = tree_flatten(out)
         n = entry.n_keep
         return tree_unflatten(leaves[:n] + [x.clone() if torch.is_tensor(x) else x
@@ -367,13 +380,17 @@ class CompiledStep:
         return sum(b.pool_bytes() for b in self._backends.values())
 
 
-def compile_step(fn, *, donate=True, pool=None, name=None, capture=None):
+def compile_step(fn, *, donate=True, pool=None, name=None, capture=None, eager=False,
+                 capture_mode="global"):
     """``fn`` as a compiled step: CUDA graphs on the card, eager on the CPU (module
     docstring). The generators ``fn`` draws from are among its arguments, and each is
     registered with the graph. ``donate``: write the
     new state (``fn``'s first result) back into the first argument's buffers; ``pool``:
-    a ``torch.cuda.graph_pool_handle()`` to share with other compiled steps. ``capture``
-    stands in for the CUDA capture (``warmup(run)``, ``capture(body, generators) ->
-    (handle, info)``, ``replay(handle) -> outputs``) in the CPU tests of this module's
-    bookkeeping; nothing in the package passes it."""
-    return CompiledStep(fn, donate=donate, pool=pool, name=name, capture=capture)
+    a ``torch.cuda.graph_pool_handle()`` to share with other compiled steps; ``eager``:
+    never capture (work the backend cannot capture); ``capture_mode``: CUDA's
+    ``capture_error_mode``, ``"thread_local"`` for a step with an NCCL collective.
+    ``capture`` stands in for the CUDA capture (``warmup(run)``, ``capture(body,
+    generators) -> (handle, info)``, ``replay(handle) -> outputs``) in the CPU tests of
+    the bookkeeping; nothing in the package sets it of its own."""
+    return CompiledStep(fn, donate=donate, pool=pool, name=name, capture=capture, eager=eager,
+                        capture_mode=capture_mode)

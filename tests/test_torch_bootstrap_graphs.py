@@ -165,24 +165,34 @@ SHAPES = {"eight_point": ((512, 8, 9), False), "project_to_essential": ((512, 3,
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_svd_on_the_cpu_is_torch_linalg_svd(site):
     """At each call site's shape a CPU tensor runs ``torch.linalg.svd`` exactly, launches
-    nothing and leaves no convergence record."""
+    nothing and records no failure."""
     shape, full = SHAPES[site]
     A = torch.from_numpy(np.random.default_rng(3).normal(size=shape).astype(np.float32))
     kernels.reset_launches()
+    svd_mod.reset("cpu")
     got = svd_mod.svd(A, full_matrices=full, site=site)
     want = torch.linalg.svd(A, full_matrices=full)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert kernels.LAUNCHES["svd"] == 0 and svd_mod.record("cpu") is None
+    assert kernels.LAUNCHES["svd"] == 0 and not svd_mod.record("cpu").any()
 
 
 def test_a_failed_record_raises_naming_the_call_site_and_matrix():
-    """``raise_if_failed`` reads a record brought back to the host: all zero passes; a
-    row with a failure raises ``SVDNotConverged`` naming its site, the first matrix and
-    cuSOLVER's code; a tensor on another device than the CPU or CUDA is refused."""
-    rows = np.zeros((len(svd_mod.SITES), 3))
-    svd_mod.raise_if_failed(rows)
-    rows[svd_mod.SITES.index("five_point")] = (2, 7, 6)
-    with pytest.raises(svd_mod.SVDNotConverged, match=r"five_point.*2 of .*matrix 7.*code 6"):
-        svd_mod.raise_if_failed(rows.reshape(-1))
+    """The record names the call site and the matrix of a failure, and raises nothing:
+    all zero reads as no failure; a batch with two NaN matrices at ``five_point`` leaves
+    that row at [2, the first of them, -1] (no solver code on the CPU), read back as
+    ``{"five_point": 2}``; a later call of the site that fails elsewhere keeps the first
+    call's row; a tensor on another device than the CPU or CUDA is refused."""
+    assert svd_mod.failures(np.zeros((len(svd_mod.SITES), 3))) == {}
+    A = torch.from_numpy(np.random.default_rng(5).normal(size=(51, 5, 9)).astype(np.float32))
+    A[7, 2, 4] = float("nan")
+    A[30, 0, 0] = float("inf")
+    svd_mod.reset("cpu")
+    svd_mod.svd(A, site="five_point")
+    B = A.clone()
+    B[0, 0, 0] = float("nan")
+    svd_mod.svd(B, site="five_point")
+    rows = svd_mod.record("cpu").numpy()
+    assert rows[svd_mod.SITES.index("five_point")].tolist() == [2, 7, -1]
+    assert svd_mod.failures(rows.reshape(-1)) == {"five_point": 2}
     with pytest.raises(ValueError, match="meta"):
         svd_mod.svd(torch.empty((4, 3, 3), device="meta"), site="decompose_essential")

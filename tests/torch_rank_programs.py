@@ -10,18 +10,24 @@ pytest process.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten
 
 from lcvo_tpu_torch.config import load_config
-from lcvo_tpu_torch.frontend.match import knn_match_ratio, knn_match_ratio_sharded
+from lcvo_tpu_torch.frontend.match import (compiled_matcher, knn_match_ratio,
+                                           knn_match_ratio_sharded)
+from lcvo_tpu_torch.parallel import mesh as mesh_mod
 from lcvo_tpu_torch.parallel import streams as ps
 from lcvo_tpu_torch.parallel.mesh import (all_gather, gather_batched_state, make_mesh,
                                           mesh_from_config, psum, shard_batched_state)
 from lcvo_tpu_torch.solve.ba.schur import BAProblem, ba_solve
-from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded
+from lcvo_tpu_torch.solve.ba.sharded import ba_solve_sharded, compiled_solver
+from lcvo_tpu_torch.utils.graphs import compile_step, place
 
 
 def _save(out: str, **arrays) -> None:
@@ -158,3 +164,140 @@ def fail_on_one_rank(dev, argv) -> None:
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails on purpose")
     dist.all_reduce(torch.ones(1, device=dev))
+
+
+class _StandIn:
+    """``tests/test_torch_graphs.py``'s stand-in for the CUDA capture (the capture runs
+    the body once and the first replay hands its result back; later replays run the body
+    on the graph's buffers and copy into the outputs of the capture), counting the
+    captures, the replays and the collectives the captured body makes."""
+
+    def __init__(self, counter):
+        self.counter, self.captures, self.replays, self.collectives = counter, 0, 0, 0
+
+    def warmup(self, run):
+        run()
+
+    def capture(self, body, generators):
+        before = self.counter[0]
+        outs = body()
+        self.captures += 1
+        self.collectives += self.counter[0] - before
+        return [body, outs, True], {}
+
+    def replay(self, handle):
+        self.replays += 1
+        body, outs, first = handle
+        if first:
+            handle[2] = False
+            return outs
+        for o, n in zip(tree_flatten(outs)[0], tree_flatten(body())[0]):
+            if torch.is_tensor(o) and o is not n:
+                o.copy_(n)
+        return outs
+
+
+def _count_collectives() -> list:
+    """Wrap the collectives the mesh helpers call so that each call adds one to the
+    returned counter."""
+    counter = [0]
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            counter[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name in ("all_reduce", "all_gather_into_tensor"):
+        setattr(dist, name, counting(getattr(dist, name)))
+    return counter
+
+
+@contextlib.contextmanager
+def _as_on_nccl(standin):
+    """The sharded calls made inside are made as on NCCL (``capturable`` true) and their
+    compiled steps capture through ``standin`` in place of the CUDA capture: a gloo
+    collective runs inside the stand-in's captured body as an NCCL one runs inside the
+    graph."""
+    patches = [(mesh_mod, "capturable", lambda mesh, axis="data": True),
+               (ps, "capturable", lambda mesh, axis="data": True),
+               (mesh_mod, "compile_step", functools.partial(compile_step, capture=standin)),
+               (ps, "compile_step", functools.partial(compile_step, capture=standin))]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, value in patches:
+        setattr(m, name, value)
+    try:
+        yield
+    finally:
+        for m, name, value in saved:
+            setattr(m, name, value)
+
+
+def sharded_graphs(dev, argv) -> None:
+    """The three compiled sharded calls on gloo, eager as the backend decides and made as
+    on NCCL through the capture stand-in (3 calls each): ``ba_solve_sharded`` on ``<in>.pt``'s ``ba``
+    problem, ``knn_match_ratio_sharded`` on its ``match`` inputs and the mesh
+    ``make_multistream_step`` on its ``step`` case (this rank's part of the streams);
+    each result, whether it replayed, the stand-in's captures, replays and the
+    collectives inside the captured body; and ``all_gather`` against a gather into a list
+    of tensors, for three dtypes."""
+    src, out = argv
+    d = torch.load(src, weights_only=False)
+    counter = _count_collectives()
+    world = dist.get_world_size()
+    mesh = make_mesh(world, device_type=dev.type)
+    got = {}
+
+    def keep(tag, tree):
+        for i, x in enumerate(_leaves(tree)):
+            got[f"{tag}/{i}"] = x
+
+    def through_standin(tag, make, call):
+        standin = _StandIn(counter)
+        mesh._compiled.clear()      # the eager steps the mesh keeps give way to new ones
+        with _as_on_nccl(standin):
+            step = make()
+        for k in range(3):
+            keep(f"{tag}/standin{k}", call(step))
+            # the streams step keeps its compiled step as ``step.compiled``
+            got[f"{tag}/standin{k}_replayed"] = np.array(getattr(step, "compiled", step).replayed)
+        got[f"{tag}/captures"] = np.array(standin.captures)
+        got[f"{tag}/replays"] = np.array(standin.replays)
+        got[f"{tag}/collectives_in_capture"] = np.array(standin.collectives)
+
+    prob = BAProblem(*(x.to(dev) for x in d["ba"]["problem"]))
+    kw = d["ba"]["kw"]
+    keep("ba/eager", ba_solve_sharded(prob, mesh, **kw))
+    got["ba/eager_replayed"] = np.array(compiled_solver(mesh, **kw).replayed)
+    keep("ba/one", ba_solve(prob, **kw))
+    through_standin("ba", lambda: compiled_solver(mesh, **kw), lambda step: step(*prob, None))
+
+    q = [x.to(dev) for x in d["match"]]
+    keep("match/eager", knn_match_ratio_sharded(mesh, *q))
+    got["match/eager_replayed"] = np.array(compiled_matcher(mesh).replayed)
+    keep("match/one", knn_match_ratio(*q))
+    through_standin("match", lambda: compiled_matcher(mesh), lambda step: step(*q))
+
+    s = d["step"]
+    cfg = load_config(overrides=s["overrides"])
+    states, images, samples = (shard_batched_state(s[k], mesh) for k in ("states", "images", "samples"))
+    eager = ps.make_multistream_step(cfg, s["K"], mesh=mesh, device=dev)
+    keep("step/eager", eager(place(None, states), images, samples))
+    got["step/eager_replayed"] = np.array(eager.compiled.replayed)
+    got["step/eager_sum_in_graph"] = np.array(eager.sum_in_graph)
+    sums = {}
+
+    def make_step():
+        step = ps.make_multistream_step(cfg, s["K"], mesh=mesh, device=dev)
+        sums["in_graph"] = step.sum_in_graph
+        return step
+
+    through_standin("step", make_step, lambda step: step(place(None, states), images, samples))
+    got["step/standin_sum_in_graph"] = np.array(sums["in_graph"])
+
+    for dtype in (torch.float32, torch.int64, torch.bool):
+        x = (torch.arange(6, device=dev).reshape(3, 2) * (dist.get_rank() + 1)).to(dtype)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        got[f"gather/{dtype}"] = np.array(torch.equal(all_gather(x, mesh), torch.cat(parts)))
+    _save(out, **got)
