@@ -46,7 +46,7 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    launch counters set to 0 just before and read just after, each through
    ``VisualOdometry(cfg, K, device="cuda").run_chunked(frames, chunk=16)`` (bootstrap,
    two chunks of 16, three tail frames):
-   a. the default configuration (shi-mask, KLT bootstrap, eight-point): ATE < 0.03 m,
+   a. the default configuration (shi-mask, KLT bootstrap, eight-point): ATE < 0.0113 m,
       >= 6 extraction launches per processed frame;
    b. ``configs/reference.yaml`` (sift-sift candidates, SIFT bootstrap, five-point
       solver, 21x21 KLT, 1024 keypoints): ATE under its own bound, >= 12 extraction
@@ -161,7 +161,7 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    the cross-rank arithmetic and give no speed figure.
 12. Candidate modes (``[main:sift-mask]``, ``[main:harris-mask]``, ``[main:shi-mask+ba]``):
    ``bench.py``'s three modes that no path above runs, through ``main_path_phase`` on the
-   same frames (42, 42 and 74), each under 8x the JAX package's CPU figure, with the
+   same frames (42, 42 and 74), each under 3x the JAX package's CPU figure, with the
    launch floor of its candidate stage (SIFT in sift-mask) and, for shi-mask+ba, the BA
    checks. They run right after the checkpoint phase.
 13. Recovery (``[recovery]``, ``[recovery:run]``, ``[recovery:ba]``, ``[recovery:tracks]``):
@@ -170,7 +170,7 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    pose per frame from ``frame_gap`` on, at least one re-bootstrap, health 0 and the last
    8 poses good at the end, no more re-bootstraps than the JAX package on the CPU on the
    same frames and an ATE under the JAX file's 1.0 m where that package meets it, else
-   ``JAX_ATE_FACTOR`` times its figure, the median step after the recovery within ``SCALE_SEAM`` of the one before,
+   ``RECOVERY_ATE_FACTOR`` times its figure, the median step after the recovery within ``SCALE_SEAM`` of the one before,
    launches at or above the floor that counts the re-bootstrap's KLT chain, no host sync
    in a chunk of the corrupted frames; with BA, every bootstrap leaves an empty window and
    the mirror at 0, and keyframes pushed = refines run = the cadence over each segment,
@@ -192,7 +192,18 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    per frame from the dataset's gap on, pose_ok on >= 90% of rows, ATE under 8x the JAX
    CLI's CPU figure, every JPEG offered to the native decoder, counted as declined and
    read by PIL (Malaga, with its GPS ground truth), every PNG decoded natively (parking).
-17. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
+17. Lock-step (``[lockstep:<path>]``, on every path above: default, reference,
+   throughput, turn_robust, the three modes, the three recovery runs, the five stress
+   runs, the three CLI replays and streams at S = 1): the port draws the JAX package's
+   random stream, so each run is held to the JAX package's run of the same frames,
+   configuration and seed on the CPU, read from ``lcvo_tpu_torch/data/jax_lockstep.json``
+   (``tools/port_jax_reference.py``; no JAX here): per-entry camera-center distance
+   unaligned and after Sim(3), the shares of equal pose_ok and PnP inlier counts, the
+   first entry where they part, both ATEs and whether the frames' bytes are the
+   reference's (the replays' files are written on the card, the reference's on the
+   CPU). A missing file or path fails; a bound of ``LOCKSTEP_BOUNDS`` missed fails the
+   script once every phase has run.
+18. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
    from its configuration and re-bootstrap count, each path checked against it); the
    kernel table as one JSON line (the 2-D entry, whose ``launches_by_path`` holds every
    single-stream path above, the layered entry, and the SVD route with its launches on
@@ -225,32 +236,28 @@ F32_FLOPS_PER_S = 67e12
 N_FRAMES = 42            # 7 bootstrap + 2 chunks of 16 + 3 tail frames
 N_LATENCY = 6            # extra frames for the per-frame step latency
 CHUNK = 16
-# ATE bound for the seed-0 run: 8x the 0.00376 m the JAX package reaches on the CPU on
-# the same 42 frames at 1240x376 (tools/port_parity_cpu.py --width 1240 --height 376
-# --seed 0). The headroom covers the random streams: the port draws its RANSAC samples
-# from a torch.Generator, not JAX's PRNG, so it does not retrace the JAX trajectory.
-ATE_BOUND_M = 0.03
-# The second main path and its ATE bound, set the same way: 8x the 0.012625 m the JAX
-# package reaches on the CPU on the same 42 frames at 1240x376 with this file
-# (tools/port_parity_cpu.py --config configs/reference.yaml --width 1240 --height 376
-# --seed 0; the port reaches 0.010228 m there).
+# ATE bounds of the main and mode paths: LOCKSTEP_ATE_FACTOR times the JAX package's
+# figure on the CPU on the same frames, configuration and seed (its run in LOCKSTEP_FILE;
+# tools/port_parity_cpu.py --width 1240 --height 376 [--config F] [--frames 74] --seed S
+# prints it too). While the port drew its own random stream the bounds were 8x;
+# drawing the JAX package's samples, the H100 read 0.62-2.19x the JAX figure on these
+# seven paths over two runs (harris-mask the highest: 0.00613 m against 0.0027965), so 3x.
+LOCKSTEP_ATE_FACTOR = 3.0
+ATE_BOUND_M = LOCKSTEP_ATE_FACTOR * 0.0037638     # the default path, seed 0, 42 frames
 REF_CONFIG = os.path.join("configs", "reference.yaml")
-REF_ATE_BOUND_M = 0.101
-# The two BA paths, on BA_FRAMES frames, and their ATE bounds, set the same way: 8x the
-# JAX package's CPU figure on the same 74 frames at 1240x376 with each file
-# (tools/port_parity_cpu.py --config configs/<file> --width 1240 --height 376 --frames 74
-# --seed S): 0.013236 m at seed 0 and 0.018652 m at seed 1 (the port reaches 0.016468 m
-# and 0.019728 m there).
+REF_ATE_BOUND_M = LOCKSTEP_ATE_FACTOR * 0.012625  # configs/reference.yaml, seed 0
+# The two BA paths, on BA_FRAMES frames: the JAX package reads 0.013236 m at seed 0
+# (throughput) and 0.018652 m at seed 1 (turn_robust).
 # turn_robust runs at cfg.seed 1. At seed 0 the two-view bootstrap on the card, with this
 # file's KLT settings, draws a weak init (261 essential-matrix inliers against 688-705 at
 # seeds 1-3) and the ATE is 1.03 m with BA and 1.73 m without: one of the wrong-bootstrap
 # draws that both packages show on about 1 seed in 20 (PERF.md), not a matter of BA.
 BA_FRAMES = 74           # 7 bootstrap + 4 chunks of 16 + 3 tail frames
 THR_CONFIG = os.path.join("configs", "throughput.yaml")
-THR_ATE_BOUND_M = 0.106
+THR_ATE_BOUND_M = LOCKSTEP_ATE_FACTOR * 0.013236
 TURN_CONFIG = os.path.join("configs", "turn_robust.yaml")
 TURN_SEED = 1
-TURN_ATE_BOUND_M = 0.149
+TURN_ATE_BOUND_M = LOCKSTEP_ATE_FACTOR * 0.018652
 CKPT_CHUNKS = 2          # the checkpoint phase stops after this many chunks
 POSE_OK_MIN = 0.9
 # The card's renderer against the same code on the CPU, same pose: limits set from what
@@ -306,9 +313,9 @@ BA_LINE = {"cost0_rel": 1e-5, "cost_rel": 0.05, "R": 2e-4, "t": 2e-3, "X": 2e-2}
 # The three candidate modes of bench.py that no earlier phase runs, as bench.py builds
 # them (the VOConfig defaults with find_new_candidates_method set; "+ba" turns window BA
 # on at its defaults): sift-mask and harris-mask on N_FRAMES frames, shi-mask+ba on
-# BA_FRAMES. ATE bounds: 8x the JAX package's CPU figure on the same frames at seed 0
-# (tools/port_parity_cpu.py --width 1240 --height 376 --packages jax --mode M [--ba]
-# --frames F).
+# BA_FRAMES. ATE bounds: LOCKSTEP_ATE_FACTOR times the JAX package's CPU figure on the
+# same frames at seed 0 (tools/port_parity_cpu.py --width 1240 --height 376 --packages
+# jax --mode M [--ba] --frames F).
 MODES = (("sift-mask", N_FRAMES, 0.0032837), ("harris-mask", N_FRAMES, 0.0027965),
          ("shi-mask+ba", BA_FRAMES, 0.0117692))
 # The recovery and stress paths are held to what the JAX package does on the same
@@ -318,8 +325,75 @@ MODES = (("sift-mask", N_FRAMES, 0.0032837), ("harris-mask", N_FRAMES, 0.0027965
 JAX_ATE_FACTOR = 1.5
 
 
-def jax_held_bound(jax_ate: float, file_bound: float) -> float:
-    return file_bound if jax_ate < file_bound else JAX_ATE_FACTOR * jax_ate
+# The recovery runs retrace the JAX package's: the H100 read 1.195793 / 1.194216 m
+# against its 1.195753 / 1.194775 m, so where the JAX figure is above the file's
+# bound the recovery bound is this factor of it, not JAX_ATE_FACTOR.
+RECOVERY_ATE_FACTOR = 1.2
+
+
+def jax_held_bound(jax_ate: float, file_bound: float, factor: float = JAX_ATE_FACTOR) -> float:
+    return file_bound if jax_ate < file_bound else factor * jax_ate
+
+
+# Lock-step: the port draws the JAX package's random stream, so every path is held to
+# the JAX package's own run of the same frames, configuration and seed on the CPU
+# (LOCKSTEP_FILE, written by tools/port_jax_reference.py; a missing file or path fails
+# the phase). Each [lockstep:<path>] line gives the per-entry camera-center distance
+# unaligned and after Sim(3), the shares of equal pose_ok and inlier counts, the first
+# entry where they part, both ATEs and whether the frames' bytes are the reference's.
+# Bounds per path: (largest unaligned camera-center distance in m, least share of
+# entries with equal pose_ok), about twice the largest the H100 read (two runs of this
+# file, before and after the normalized points took XLA's rounding, see
+# core/geometry.py::backproject: the swaps move but do not go) and the port on the CPU
+# at full width (tools/port_parity_cpu.py: 0.0063 / 0.0094 / 0.0277 / 0.0212 m on the
+# four main paths); pose_ok equal on every entry where the card showed it. The
+# full-width sharp turn and arena corner lose track in both packages (the JAX package
+# re-bootstraps 3 and 2 times there): the runs part at the first re-bootstrap and stay
+# metres apart (3.6 and 6.4 m), so only a loose distance and the pose_ok share hold
+# them. The replays' files are written on the card, the reference's on the CPU (a grey
+# level on a few pixels in a million), which the distance also carries.
+LOCKSTEP_FILE = os.path.join("lcvo_tpu_torch", "data", "jax_lockstep.json")
+LOCKSTEP_BOUNDS = {
+    "default": (0.02, 1.0), "reference": (0.02, 1.0), "throughput": (0.06, 1.0),
+    "turn_robust": (0.08, 1.0), "sift-mask": (0.015, 1.0), "harris-mask": (0.04, 1.0),
+    "shi-mask+ba": (0.17, 1.0), "recovery": (0.035, 1.0), "recovery:run": (0.015, 1.0),
+    "recovery:ba": (0.025, 1.0), "stress:sharp_turn_416x160": (0.6, 0.95),
+    "stress:sharp_turn": (7.5, 0.8), "stress:textureless_occluder": (0.45, 1.0),
+    "stress:arena_corner_416x160": (0.2, 1.0), "stress:arena_corner": (13.0, 0.85),
+    "streams:S1": (0.12, 1.0), "replay:kitti_turn": (1.5, 1.0), "replay:malaga": (0.09, 1.0),
+    "replay:parking": (0.33, 1.0),
+}
+_lockstep_ref: dict = {}
+_lockstep_faults: list = []
+
+
+def frames_sha256(frames) -> str:
+    """tools/port_jax_reference.py's hash of a path's uint8 frames."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(frames, dtype=np.uint8).tobytes()).hexdigest()
+
+
+def lockstep_check(path: str, centers, pose_ok, n_inliers, ate: float, frames_sha: str) -> dict:
+    """``[lockstep:<path>]``: this run against the JAX package's run of the path in
+    LOCKSTEP_FILE. A missing file or entry raises now; a bound missed is kept and
+    raised when every phase has run."""
+    from lcvo_tpu_torch.metrics import lockstep
+
+    if not _lockstep_ref:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), LOCKSTEP_FILE)) as fh:
+            _lockstep_ref.update(json.load(fh)["paths"])
+    ref = _lockstep_ref[path]
+    cmp = lockstep(centers, pose_ok, n_inliers, ref["centers"], ref["pose_ok"], ref["n_inliers"])
+    max_d, min_ok = LOCKSTEP_BOUNDS[path]
+    out = {**cmp, "ate_m": ate, "jax_cpu_ate_m": ref["ate_m"],
+           "frames_equal_reference": frames_sha == ref["frames_sha256"],
+           "bound_distance_m": max_d, "bound_pose_ok_equal_share": min_ok}
+    _say(f"[lockstep:{path}] " + json.dumps(out))
+    if not (cmp["entries"] == cmp["reference_entries"] and cmp["distance_m_max"] <= max_d
+            and cmp["pose_ok_equal_share"] >= min_ok):
+        _lockstep_faults.append(f"{path}: {out}")
+    return out
 
 
 # The recovery path: the first RECOVERY_FRAMES frames of the corridor with frames 28-30
@@ -775,15 +849,16 @@ def ba_checks(tag: str, vo, frames, n_frames: int) -> dict:
         raise AssertionError(f"[{tag}] {want} keyframes do not wrap the ring of {ba.window}")
 
     # one more chunk under the sync detector, from the state the run ended in; the
-    # carry is not kept and the generator is put back
+    # carry is not kept and the key chain is not advanced
+    from lcvo_tpu_torch.utils import jax_random
+
     chunk_fn = make_chunk_fn(vo.cfg, vo.K, vo.device)
     batch = torch.from_numpy(frames[n_frames: n_frames + CHUNK]).to(vo.device)
     if keyframes_in(vo._frame_idx, batch.shape[0], ba.keyframe_every) < 1:
         raise AssertionError(f"[{tag}] the chunk under the sync detector holds no keyframe")
-    gen_state = vo._gen.get_state()
-    syncs = _host_syncs(lambda: chunk_fn(vo.chunk_carry(), batch, vo._gen,
+    keys = jax_random.split(vo._key, batch.shape[0])
+    syncs = _host_syncs(lambda: chunk_fn(vo.chunk_carry(), batch, keys,
                                          frame_idx=vo._frame_idx))
-    vo._gen.set_state(gen_state)
     if syncs:
         raise AssertionError(f"[{tag}] the chunk step with BA waits for the device at {syncs}")
     _say(f"[{tag}] a chunk of {batch.shape[0]} frames with "
@@ -809,18 +884,22 @@ def _same_bits(a: list, b: list) -> bool:
 
 def _replay_host_ms(vo, frames) -> dict:
     """Host time of one replay of the compiled per-frame step (the wrapper's copies and
-    clones, the generator's prologue and the graph launch, frames already on the card),
+    clones, the draws' copy into the graph's buffer and the graph launch, frames and
+    draws already on the card),
     over ``len(frames)`` back-to-back calls that nothing waits for, beside the time per
     call once the card has finished them; with BA the same for the keyframe step. The
     replays move ``vo.state`` and not the host's mirror of it, so this runs last on a
     ``vo``."""
     import torch
 
+    from lcvo_tpu_torch.utils import jax_random
+
     imgs = [torch.from_numpy(f).to(vo.device) for f in frames]
+    draws = vo._uniforms(jax_random.split(vo._key, len(imgs)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for im in imgs:
-        vo.state, _ = vo._process(vo.state, im, vo._gen)
+    for im, u in zip(imgs, draws):
+        vo.state, _ = vo._process(vo.state, im, u)
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     out = {"process_frame_host_ms_per_replay": host / len(imgs) * 1e3,
@@ -879,6 +958,8 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     if ok_rate < POSE_OK_MIN:
         raise AssertionError(f"[{tag}] pose_ok on {ok_rate:.3f} of entries < {POSE_OK_MIN}")
     ate = ate_rmse(est, seq.gt_positions()[gap: gap + len(est)])
+    lock = lockstep_check(tag.split(":", 1)[1] if ":" in tag else "default", est, flags,
+                          inliers, ate, frames_sha256(frames[:n_frames]))
     if not ate < ate_bound:
         raise AssertionError(f"[{tag}] ATE {ate} m >= {ate_bound} m")
     if launches["extract_blocks"] < min_launches:
@@ -896,9 +977,12 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     # no host round trip inside the step: every call that synchronises is listed (the
     # eager step, which is where one would be; the graphs' replays are checked in a
     # whole chunk by graphs_phase)
+    from lcvo_tpu_torch.utils import jax_random
+
     img = torch.from_numpy(frames[n_frames]).to("cuda")
+    u = vo._uniforms(jax_random.split(vo._key, 1))[0]
     with disable_graphs():
-        syncs = _host_syncs(lambda: vo._process(vo.state, img, vo._gen))
+        syncs = _host_syncs(lambda: vo._process(vo.state, img, u))
     if syncs:
         raise AssertionError(f"[{tag}] process_frame waits for the device at {syncs}")
     _say(f"[{tag}] process_frame under torch.cuda.set_sync_debug_mode('warn'): no host sync")
@@ -936,7 +1020,7 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
         "step_latency_ms": lat, "step_latency_ms_median_eager": statistics.median(lat_eager),
         "launches": launches, "min_launches": min_launches,
         "rebootstraps": vo.n_rebootstraps, "bootstrap_first_s": bootstrap_first_s,
-        "bootstrap_warm_s": bootstrap_warm_s,
+        "bootstrap_warm_s": bootstrap_warm_s, "lockstep_distance_m_max": lock.get("distance_m_max"),
     }
     if ba is not None:
         out["ba"] = ba
@@ -1081,16 +1165,20 @@ def graphed_chunk_syncs(tag: str, cfg, seq, frames, n_frames: int) -> None:
     import torch
 
     from lcvo_tpu_torch.pipeline import VisualOdometry, keyframes_in
+    from lcvo_tpu_torch.utils import jax_random
 
     vo = VisualOdometry(cfg, seq.K, device="cuda")
     vo.run_chunked(frames[:n_frames - 3], chunk=CHUNK)
     step = vo.make_chunk_step(CHUNK)
     batch = torch.from_numpy(frames[n_frames: n_frames + CHUNK]).to(vo.device)
     kf = keyframes_in(vo._frame_idx, CHUNK, cfg.ba.keyframe_every) if cfg.ba.enabled else 0
-    captures = sum(x.captures() for x in (vo._process, vo._ba) if x is not None)
+    steps = (vo._process, vo._ba, vo._uniforms.compiled)
+    captures = sum(x.captures() for x in steps if x is not None)
+    # the chunk's keys made and uploaded inside, as the host loop does
     syncs = _host_syncs(lambda: vo.set_chunk_carry(
-        step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)[0], CHUNK))
-    if sum(x.captures() for x in (vo._process, vo._ba) if x is not None) != captures:
+        step(vo.chunk_carry(), batch, jax_random.split(vo._next_key(), CHUNK),
+             frame_idx=vo._frame_idx)[0], CHUNK))
+    if sum(x.captures() for x in steps if x is not None) != captures:
         raise AssertionError(f"[graphs:{tag}] the chunk under the sync detector captured anew")
     if syncs:
         raise AssertionError(f"[graphs:{tag}] a replayed chunk waits for the device at {syncs}")
@@ -1271,6 +1359,7 @@ def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
     from lcvo_tpu_torch.ops import epipolar
     from lcvo_tpu_torch.ops import svd as svd_mod
     from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils import jax_random
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, worst = {}, {"s_rel": 0.0, "recon_rel": 0.0, "vectors": 0.0, "max_abs_err": 0.0}
@@ -1312,9 +1401,11 @@ def svd_phase(cfg, ref_cfg, seq, frames) -> dict:
                       svd_mod.svd_plain(A, full_matrices)):
             saved, svd_mod.svd = svd_mod.svd, route
             try:
-                g = torch.Generator(device="cuda").manual_seed(c.seed)
+                u = torch.from_numpy(jax_random.uniform(
+                    jax_random.PRNGKey(c.seed),
+                    epipolar.draw_shape(c.ransac.e_hypotheses, solver))).to("cuda")
                 outs.append(epipolar.essential_ransac(
-                    g, x0, x1, ok, thresh=c.ransac.e_thresh_px / float(seq.K[0, 0]),
+                    u, x0, x1, ok, thresh=c.ransac.e_thresh_px / float(seq.K[0, 0]),
                     n_hyp=c.ransac.e_hypotheses, solver=solver))
             finally:
                 svd_mod.svd = saved
@@ -1356,7 +1447,8 @@ def bootstrap_phase(tag: str, cfg, seq, frames) -> dict:
     import torch
 
     from lcvo_tpu_torch import kernels
-    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.pipeline import VisualOdometry, keys_to_device
+    from lcvo_tpu_torch.utils import jax_random
     from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     burst = list(frames[: cfg.bootstrap.frame_gap + 1])
@@ -1404,7 +1496,7 @@ def bootstrap_phase(tag: str, cfg, seq, frames) -> dict:
                 pts, ok = vo._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
             if vo._sift is not None:
                 vo._sift(imgs[-1])
-        return vo._two_view(vo._gen, pts0, pts, ok)
+        return vo._two_view(key, pts0, pts, ok)
 
     def timed(fn, *args):       # one replay and its wall ms until the card has done it
         torch.cuda.synchronize()
@@ -1413,7 +1505,8 @@ def bootstrap_phase(tag: str, cfg, seq, frames) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    gen_state = vo._gen.get_state()
+    # the key of the bootstrap below, on the card: the pieces do not advance the chain
+    key = keys_to_device(jax_random.split(vo._key)[1], "cuda")
     syncs = _host_syncs(pieces)
     pieces_s, by_piece = [], {}
     for _ in range(BOOT_REPS):
@@ -1440,10 +1533,9 @@ def bootstrap_phase(tag: str, cfg, seq, frames) -> dict:
                 times["track_pair"] += ms
             if vo._sift is not None:
                 times["sift_features"] = timed(vo._sift, imgs[-1])[1]
-        times["two_view_init"] = timed(vo._two_view, vo._gen, pts0, pts, ok)[1]
+        times["two_view_init"] = timed(vo._two_view, key, pts0, pts, ok)[1]
         for k, v in times.items():
             by_piece.setdefault(k, []).append(v)
-    vo._gen.set_state(gen_state)
     boot_syncs = _host_syncs(lambda: vo.bootstrap(burst))
     if sum(c.captures() for c in vo._compiled()) != captures:
         raise AssertionError(f"[bootstrap:{tag}] a warm bootstrap captured anew")
@@ -1564,8 +1656,9 @@ def _watched(vo, tag: str) -> tuple[list, list, list]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = boot(*a, **k)             # ends with its read-back
-        boots.append((time.perf_counter() - t0, sum(c.captures() for c in vo._compiled()
-                                                    if c.name not in ("process_frame", "ba_step"))))
+        boots.append((time.perf_counter() - t0, sum(
+            c.captures() for c in vo._compiled()
+            if c.name not in ("process_frame", "ba_step", "pnp_uniforms"))))
         if vo.window is not None and (vo._frame_idx or bool(vo.window.kf_valid.any())):
             raise AssertionError(f"[{tag}] a bootstrap left frame_idx {vo._frame_idx} or a "
                                  f"keyframe in the window")
@@ -1609,13 +1702,15 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
     gap, skip = cfg.bootstrap.frame_gap, max(cfg.bootstrap.rebootstrap_skip, 1)
     vo = VisualOdometry(cfg, seq.K, device="cuda")
     segments, anchors, boots = _watched(vo, tag)
+    ninl: list[int] = []
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     if chunked:
-        traj = vo.run_chunked(frames, chunk=CHUNK)
+        traj = vo.run_chunked(frames, chunk=CHUNK, on_chunk=lambda s, R, t, ok, ni: ninl.extend(
+            int(x) for x in ni))
     else:
-        traj = vo.run(iter(frames), n)
+        traj = vo.run(iter(frames), n, on_frame=lambda i, r: ninl.append(int(r.n_inliers)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
@@ -1632,7 +1727,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
         floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
     ate = ate_rmse(est, seq.gt_positions()[gap: gap + len(est)])
     jax_ate, jax_reb = jax
-    bound = jax_held_bound(jax_ate, RECOVERY_FILE_BOUND_M)
+    bound = jax_held_bound(jax_ate, RECOVERY_FILE_BOUND_M, RECOVERY_ATE_FACTOR)
     out = {"frames": n, "burst": list(RECOVERY_BURST), "burst_seed": RECOVERY_BURST_SEED,
            "chunked": chunked, "poses": len(est), "rebootstraps": n_reb,
            "health_end": int(vo.state.health), "last_8_pose_ok": bool(flags[-8:].all()),
@@ -1641,6 +1736,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
            "ate_m": ate, "ate_bound_m": bound, "jax_cpu_ate_m": jax_ate,
            "jax_cpu_rebootstraps": jax_reb, "scale_seam": seam, "launches": launches, "launches_floor": floor,
            "steps_per_segment": segments, "wall_s": wall}
+    lockstep_check(tag, est, flags, ninl, ate, frames_sha256(frames))
     eager = _recovery_eager(cfg, seq, frames, chunked)
     same_anchors = len(anchors) == len(eager["anchors"]) and all(
         (a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
@@ -1698,13 +1794,14 @@ def recovery_phase(cfg, turn_cfg, seq, clean) -> dict:
     vo, out = _recovery_run("recovery", cfg, seq, frames, RECOVERY_JAX_CPU, chunked=True)
     by_path["recovery"] = (out["launches"], out["launches_floor"])
     # a chunk of the burst and the frames around it, from the state the run ended in,
-    # replayed (the graphs are warm); the generator is put back
+    # replayed (the graphs are warm); the key chain is not advanced
+    from lcvo_tpu_torch.utils import jax_random
+
     lo = cfg.bootstrap.frame_gap + 1 + CHUNK
     batch = torch.from_numpy(frames[lo: lo + CHUNK]).to("cuda")
     step = vo.make_chunk_step(CHUNK)
-    gen_state = vo._gen.get_state()
-    syncs = _host_syncs(lambda: step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx))
-    vo._gen.set_state(gen_state)
+    keys = jax_random.split(vo._key, CHUNK)
+    syncs = _host_syncs(lambda: step(vo.chunk_carry(), batch, keys, frame_idx=vo._frame_idx))
     if syncs:
         raise AssertionError(f"[recovery] the chunk step on corrupted frames waits for the "
                              f"device at {syncs}")
@@ -1782,10 +1879,11 @@ def _stress_run(tag: str, cfg, K, frames, gt, ate_bound: float,
     n = len(frames)
     gap = cfg.bootstrap.frame_gap
     vo = VisualOdometry(cfg, K, device="cuda")
+    ninl: list[int] = []
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    traj = vo.run(iter(frames), n)
+    traj = vo.run(iter(frames), n, on_frame=lambda i, r: ninl.append(int(r.n_inliers)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
@@ -1799,6 +1897,7 @@ def _stress_run(tag: str, cfg, K, frames, gt, ate_bound: float,
            "last_5_pose_ok": all(last5), "frames_per_s": n / wall, "launches": launches,
            "launches_floor": floor}
     _say(f"[stress] {tag}: " + json.dumps(out))
+    lockstep_check(f"stress:{tag}", est, vo.pose_ok_flags, ninl, ate, frames_sha256(frames))
     faults = []
     if len(est) != n - gap or not np.all(np.isfinite(est)):
         faults.append(f"{len(est)} poses for {n} frames or non-finite")
@@ -1970,6 +2069,7 @@ def replay_layout_phase(root: str, dataset: str, jax_ate: float) -> tuple[int, i
         wall = time.perf_counter() - t0
         launches = kernels.LAUNCHES["extract_blocks"]
         decoded = native_loader.counts()
+        _cli_lockstep(tag, out_dir, summary, ds, N)
     finally:
         shutil.rmtree(os.path.join(work, "data"), ignore_errors=True)
     cfg = load_config(overrides={"bootstrap": {"frame_gap": gap}})
@@ -2105,6 +2205,19 @@ class _RssSampler:
         return [r for t, r in self.samples if t <= when][-1]
 
 
+def _cli_lockstep(path: str, out_dir: str, summary: dict, ds, n: int) -> dict:
+    """``lockstep_check`` of a CLI run: its ``trajectory.npz`` positions and the pose_ok
+    and inliers of its ``metrics.jsonl`` rows (-1 for a held row), the frames' hash over
+    the ``n`` frames the dataset ``ds`` decodes."""
+    centers = np.load(os.path.join(out_dir, "trajectory.npz"))["positions"]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+        rows = [r for r in (json.loads(line) for line in fh if line.strip()) if "pose_ok" in r]
+    sha = frames_sha256(np.stack([ds.frame(i) for i in range(n)]))
+    return lockstep_check(path, centers, [r["pose_ok"] for r in rows],
+                          [-1 if r.get("inliers") is None else r["inliers"] for r in rows],
+                          summary["ate_rmse_m"], sha)
+
+
 def _run_cli(argv: list[str], out_dir: str) -> tuple[dict, str]:
     """The port's CLI in process: ``main`` whole where matplotlib is installed (and then
     ``trajectory.png`` must exist), else ``summarise_only``, said in plain words. No
@@ -2225,6 +2338,7 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
         "mb_if_those_frames_were_staged": (N - gap - warm_rows) * 1240 * 376 / 2**20,
     }
     _say(f"[{tag}] " + json.dumps(out))
+    _cli_lockstep(tag, out_a, summary, ds, N)
     if summary["frames"] != N - gap:
         raise AssertionError(f"[{tag}] {summary['frames']} poses for {N} frames at gap {gap}")
     if summary["pose_ok_rate"] < POSE_OK_MIN:
@@ -2325,26 +2439,31 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lcvo_tpu_torch.utils import jax_random
     from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     chunk_fn = vo.make_chunk_step(CHUNK)
     batch = torch.from_numpy(frames).to(vo.device)
     n = frames.shape[0]
+
+    def keys():
+        return jax_random.split(vo._next_key(), n)
+
     with disable_graphs():     # eager: the carry is not donated, the state stays
-        carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)   # warm
+        carry, _ = chunk_fn(vo.chunk_carry(), batch, keys(), frame_idx=vo._frame_idx)   # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            carry, outs = chunk_fn(carry, batch, vo._gen, frame_idx=vo._frame_idx + n)
+            carry, outs = chunk_fn(carry, batch, keys(), frame_idx=vo._frame_idx + n)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     summary, dev_events, kern, stages = _profile_summary(prof, wall_us, n)
     # the graphed chunk, its graphs captured by the run before
-    vo.set_chunk_carry(chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)[0], n)
+    vo.set_chunk_carry(chunk_fn(vo.chunk_carry(), batch, keys(), frame_idx=vo._frame_idx)[0], n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
         t0 = time.perf_counter()
-        carry, _ = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)
+        carry, _ = chunk_fn(vo.chunk_carry(), batch, keys(), frame_idx=vo._frame_idx)
         torch.cuda.synchronize()
         gwall_us = (time.perf_counter() - t0) * 1e6
     vo.set_chunk_carry(carry, n)
@@ -2562,18 +2681,19 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
     launches_per_step = {}
 
     def chunks(S, graphed: bool):
-        """The n_chunks chunks at S streams from the stacked bootstraps, the generator at
-        ``cfg.seed``: per-chunk poses, pose_ok and inliers on the host, chunk end times,
-        the final carry."""
+        """The n_chunks chunks at S streams from the stacked bootstraps, the streams' keys
+        made as the JAX package's callers make them (``split(PRNGKey(cfg.seed), S)``,
+        each chain split per chunk): per-chunk poses, pose_ok and inliers on the host,
+        chunk end times, the final carry and the chains where they stand."""
         carry = ps.stack_streams([vo.chunk_carry() for vo in vos[:S]])
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.seed)
+        chains = ps.stream_keys(cfg.seed, S)
         Rs, ts, oks, ninls, ends = [], [], [], [], []
         torch.cuda.synchronize()
         with contextlib.nullcontext() if graphed else disable_graphs():
             for k in range(n_chunks):
                 fr = batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1)
-                carry, (R, t, ok, ninl) = step(carry, fr, gen, frame_idx=k * CHUNK)
+                chains, keys = ps.chunk_keys(chains, CHUNK)
+                carry, (R, t, ok, ninl) = step(carry, fr, keys, frame_idx=k * CHUNK)
                 packed = torch.cat([R.reshape(S, CHUNK, 9), t, ok[..., None].float(),
                                     ninl[..., None].float()], -1).cpu().numpy()
                 ends.append(time.perf_counter())
@@ -2581,11 +2701,11 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                 ts.append(packed[..., 9:12])
                 oks.append(packed[..., 12] > 0.5)
                 ninls.append(packed[..., 13])
-        return Rs, ts, oks, ninls, ends, carry, gen
+        return Rs, ts, oks, ninls, ends, carry, chains
 
     for S in STREAMS:
         kernels.reset_launches()
-        Rs, ts, oks, ninls, ends, carry, gen = chunks(S, graphed=True)
+        Rs, ts, oks, ninls, ends, carry, chains = chunks(S, graphed=True)
         launches = dict(kernels.LAUNCHES)
         final = _bits(carry)
         eRs, ets, eoks, eninls, eends, ecarry, _ = chunks(S, graphed=False)
@@ -2603,6 +2723,10 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                                   _stream_poses(np.concatenate(Rs, 1), np.concatenate(ts, 1))], 1)
         ok_rate = np.concatenate([np.ones((S, 1), bool), np.concatenate(oks, 1)], 1).mean(1)
         ates = [float(ate_rmse(centers[s], gt)) for s in range(S)]
+        if S == 1:
+            lockstep_check("streams:S1", centers[0, 1:], np.concatenate(oks, 1)[0],
+                           np.concatenate(ninls, 1)[0], ates[0],
+                           frames_sha256(frames[: gap + 1 + n_chunks * CHUNK]))
         if S == S_max:
             run_max = {"vos": vos, "batch": batch, "R": np.concatenate(Rs, 1),
                        "t": np.concatenate(ts, 1), "pose_ok": np.concatenate(oks, 1)}
@@ -2625,7 +2749,8 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
             fidx = n_chunks * CHUNK
             nxt = torch.from_numpy(frames[gap + 1 + fidx: gap + 1 + fidx + CHUNK]).to(dev)
             nxt = nxt[None].expand(S, -1, -1, -1)
-            syncs = _host_syncs(lambda: step(carry, nxt, gen, frame_idx=fidx))
+            keys = ps.chunk_keys(chains, CHUNK)[1]
+            syncs = _host_syncs(lambda: step(carry, nxt, keys, frame_idx=fidx))
             if syncs:
                 raise AssertionError(f"[streams] S={S}: the batched chunk waits for the device at {syncs}")
             row["host_syncs_in_a_chunk_with_keyframes"] = 0
@@ -2637,7 +2762,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                     with ctx(), profile(activities=[ProfilerActivity.CPU,
                                                     ProfilerActivity.CUDA]) as prof:
                         t0p = time.perf_counter()
-                        step(carry, nxt, gen, frame_idx=fidx)
+                        step(carry, nxt, keys, frame_idx=fidx)
                         torch.cuda.synchronize()
                         wall_us = (time.perf_counter() - t0p) * 1e6
                     summary, _, _, _ = _profile_summary(prof, wall_us, CHUNK)
@@ -2654,17 +2779,12 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                              f"{launches_per_step}")
 
     # stream 0 at S = 4 against S = 1 and against the unbatched chunk_fn on the first
-    # chunk, the same injected samples; stream k sees the frames k on. The control: the
-    # same S = 4 run with stream 0 given stream 1's frames, read by the same check, shows
-    # what the check reads when a stream reads another's data
+    # chunk, the same keys (stream 0's are its own at every S); stream k sees the frames
+    # k on. The control: the same S = 4 run with stream 0 given stream 1's frames, read
+    # by the same check, shows what the check reads when a stream reads another's data
     from lcvo_tpu_torch.pipeline import make_chunk_fn
 
-    sgen = torch.Generator(device=dev)
-    sgen.manual_seed(7)
-    n_hyp = cfg.ransac.pnp_hypotheses
-    valid = vos[0].state.tracks.valid.float()
-    samples = torch.multinomial(valid, 4 * CHUNK * n_hyp * 3, replacement=True,
-                                generator=sgen).reshape(4, CHUNK, n_hyp, 3)
+    samples = ps.chunk_keys(ps.stream_keys(7, 4), CHUNK)[1]
     fr = torch.stack([batch[k: k + CHUNK] for k in range(4)])
     got = {}
     swapped = fr.clone()
@@ -2960,14 +3080,15 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     S = len(vos)
     step = ps.make_multistream_chunk_step(cfg, seq.K, mesh=mesh, device="cuda")
     carry = shard_batched_state(ps.stack_streams([vo.chunk_carry() for vo in vos]), mesh)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
+    chains = ps.stream_keys(cfg.seed, S)
     got = {"R": [], "t": [], "pose_ok": []}
     torch.cuda.synchronize()
     kernels.reset_launches()
     for k in range(STREAMS_CHUNKS):
         fr = shard_batched_state(batch[None, k * CHUNK:(k + 1) * CHUNK].expand(S, -1, -1, -1), mesh)
-        carry, (R, t, ok, _) = step(carry, fr, gen, frame_idx=k * CHUNK)
+        chains, keys = ps.chunk_keys(chains, CHUNK)
+        keys = shard_batched_state(torch.from_numpy(keys.astype(np.int64)), mesh)
+        carry, (R, t, ok, _) = step(carry, fr, keys, frame_idx=k * CHUNK)
         for name, x in (("R", R), ("t", t), ("pose_ok", ok)):
             got[name].append(x.cpu().numpy())
     launches = dict(kernels.LAUNCHES)
@@ -2979,15 +3100,16 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     if launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * STREAMS_CHUNKS * CHUNK:
         raise AssertionError(f"[dist] streams through the mesh launched {launches}")
     # the mesh step, its sum over ranks inside the graph on NCCL: from the streams'
-    # states, one frame, the generator reseeded before each call (the state copied in:
-    # the step donates it)
+    # states, one frame, the same keys at each call (the state copied in: the step
+    # donates it)
     mstep = ps.make_multistream_step(cfg, seq.K, mesh=mesh, device="cuda")
     states = shard_batched_state(ps.stack_streams([vo.state for vo in vos]), mesh)
     image = shard_batched_state(batch[None, 0].expand(S, -1, -1), mesh)
+    step_keys = shard_batched_state(
+        torch.from_numpy(ps.stream_keys(cfg.seed, S).astype(np.int64)), mesh)
 
     def call():
-        gen.manual_seed(cfg.seed)
-        return mstep(place(None, states), image, gen)
+        return mstep(place(None, states), image, step_keys)
 
     graph = _graphed_vs_eager(call, mstep.compiled)
     if not mstep.sum_in_graph:
@@ -3156,7 +3278,7 @@ def main() -> int:
                      poses["turn_robust"])
     for mode, n_frames, jax_ate in MODES:
         c = load_config(overrides=mode_overrides(mode))
-        out, _, _ = main_path_phase(f"main:{mode}", c, seq, frames, 8 * jax_ate,
+        out, _, _ = main_path_phase(f"main:{mode}", c, seq, frames, LOCKSTEP_ATE_FACTOR * jax_ate,
                                     _launch_floor(c, n_frames - 1 - c.bootstrap.frame_gap, 1),
                                     args.profile, n_frames=n_frames)
         path = mode.replace("-", "_").replace("+", "_")
@@ -3196,6 +3318,8 @@ def main() -> int:
     srow["launches"] = sum(svd_by_path.values())
     srow["launches_by_path"] = svd_by_path
     skeys = keys[:12] + ("ms_by_site", "library_ms_by_site", "bound_ms_by_site")
+    if _lockstep_faults:
+        raise AssertionError("[lockstep] bounds missed: " + "; ".join(_lockstep_faults))
     _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
          f"to the kernel line")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys},

@@ -123,8 +123,12 @@ def backproject(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     s = K[0, 1]
-    y = (uv[..., 1] - cy) / fy
-    x = (uv[..., 0] - cx - s * y) / fx
+    # as the JAX package's compiled steps compute it: K is a constant there, and XLA's
+    # algebraic simplifier turns a division by a constant into a product with its
+    # reciprocal, which rounds otherwise in the last bit (enough to swap the winner of an
+    # eight-point MSAC, whose hypotheses are ill-conditioned: ROADMAP §C, quirk 2)
+    y = (uv[..., 1] - cy) * torch.reciprocal(fy)
+    x = (uv[..., 0] - cx - s * y) * torch.reciprocal(fx)
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 

@@ -40,6 +40,33 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray, with_scale: bo
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=1))))
 
 
+def lockstep(centers, pose_ok, n_inliers, ref_centers, ref_pose_ok, ref_n_inliers) -> dict:
+    """How far a run stays from a reference run of the same frames, configuration and
+    seed (the JAX package's, drawing the same RANSAC samples): per trajectory entry the
+    camera-center distance unaligned (both runs fix the scale at the same bootstrap) and
+    after a Sim(3) alignment of the run onto the reference; the shares of entries with
+    equal pose_ok and with equal PnP inlier count; and the first entry where pose_ok or
+    the inlier count part (None if none does). Runs of another length compare nothing
+    but their lengths."""
+    c, r = np.asarray(centers, np.float64), np.asarray(ref_centers, np.float64)
+    out = {"entries": len(c), "reference_entries": len(r)}
+    if c.shape != r.shape:
+        return out
+    d = np.linalg.norm(c - r, axis=1)
+    s, R, t = umeyama_alignment(c, r)
+    da = np.linalg.norm((s * (R @ c.T)).T + t - r, axis=1)
+    ok = np.asarray(pose_ok, bool) == np.asarray(ref_pose_ok, bool)
+    ninl = np.asarray(n_inliers) == np.asarray(ref_n_inliers)
+    parted = np.flatnonzero(~(ok & ninl))
+    out.update({
+        "distance_m_max": float(d.max()), "distance_m_median": float(np.median(d)),
+        "distance_sim3_m_max": float(da.max()),
+        "pose_ok_equal_share": float(ok.mean()), "inliers_equal_share": float(ninl.mean()),
+        "first_parted": int(parted[0]) if len(parted) else None,
+    })
+    return out
+
+
 def rpe_stats(est_positions: np.ndarray, gt_positions: np.ndarray, delta: int = 1, with_scale: bool = True):
     """Translation-drift statistic over ``delta``-frame intervals (NOT the standard
     RPE — per-interval translation deltas after one global Sim(3) alignment; kept

@@ -134,8 +134,15 @@ def refine_pose_sampson(R, t, x1, x2, w, iters: int = 8, damping: float = 1e-8):
     return R, t
 
 
+def draw_shape(n_hyp: int, solver: str) -> tuple[int, int]:
+    """The shape of :func:`essential_ransac`'s minimal sets, and of the uniforms they
+    are drawn from: ``(n_hyp, 8)`` for eight-point, ``(max(n_hyp // 10, 1), 5)`` for
+    five-point."""
+    return (max(n_hyp // 10, 1), 5) if solver == "five_point" else (n_hyp, 8)
+
+
 def essential_ransac(
-    gen: torch.Generator | None,
+    u: torch.Tensor | None,
     x1: torch.Tensor,
     x2: torch.Tensor,
     valid: torch.Tensor,
@@ -150,23 +157,23 @@ def essential_ransac(
     threshold in normalized units (pixel_thresh / fx). ``solver`` selects the minimal
     solver: "eight_point" (batched DLT, the default) or "five_point" (Nistér, as in
     ``cv2.findEssentialMat``: ``n_hyp // 10`` samples of 5, up to 10 hypotheses each,
-    invalid ones scored inf). ``idx`` injects the minimal sets, (n_hyp, 8) or
-    (n_hyp // 10, 5) (tests feed the JAX package's); otherwise they are drawn from
-    ``gen``.
+    invalid ones scored inf). ``u``: the uniforms of the draw's ``jax.random`` key, of
+    :func:`draw_shape`, from which the minimal sets are drawn as the JAX package draws
+    them; ``idx`` of the same shape injects the minimal sets instead.
     """
     N = x1.shape[0]
     h1 = _homogeneous(x1)
     h2 = _homogeneous(x2)
     if solver == "five_point":
         if idx is None:
-            idx = ransac.sample_minimal_sets(gen, N, valid, max(n_hyp // 10, 1), 5)  # (S, 5)
+            idx = ransac.sample_minimal_sets(u, N, valid)  # (S, 5)
         E_h, hyp_ok = five_point(x1[idx], x2[idx])                  # (S, 10, 3, 3)
         E_h = E_h.reshape(-1, 3, 3)
         err = geo.sampson_error(E_h, h1, h2)                        # (S*10, N)
         err = err.masked_fill(~hyp_ok.reshape(-1)[:, None], float("inf"))
     elif solver == "eight_point":
         if idx is None:
-            idx = ransac.sample_minimal_sets(gen, N, valid, n_hyp, 8)  # (H, 8)
+            idx = ransac.sample_minimal_sets(u, N, valid)  # (H, 8)
         E_h = project_to_essential(eight_point(x1[idx], x2[idx]))      # (H, 3, 3)
         err = geo.sampson_error(E_h, h1, h2)                            # (H, N)
     else:

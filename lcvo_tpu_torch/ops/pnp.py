@@ -190,7 +190,7 @@ def gauss_newton_pose(R, t, X, x_obs, weights, iters: int = 8, damping: float = 
 
 
 def pnp_ransac(
-    gen: torch.Generator | None,
+    u: torch.Tensor | None,
     X: torch.Tensor,
     x_obs: torch.Tensor,
     valid: torch.Tensor,
@@ -202,12 +202,13 @@ def pnp_ransac(
     """Robust world→camera pose from 2D-3D correspondences.
 
     X (N, 3) world points; x_obs (N, 2) normalized observations; thresh in normalized
-    units (pixel_thresh / fx). ``idx`` (n_hyp, 3) injects the minimal sets (tests feed
-    the JAX package's); otherwise they are drawn from ``gen``.
+    units (pixel_thresh / fx). ``u`` (n_hyp, 3): the uniforms of the draw's
+    ``jax.random`` key (``utils/jax_random.py``), from which the minimal sets are drawn
+    as the JAX package draws them; ``idx`` (n_hyp, 3) injects the minimal sets instead.
     Returns (R, t, inliers (N,), n_inliers)."""
     N = X.shape[0]
     if idx is None:
-        idx = ransac.sample_minimal_sets(gen, N, valid, n_hyp, 3)  # (H, 3)
+        idx = ransac.sample_minimal_sets(u, N, valid)  # (H, 3)
     Pw = X[idx]  # (H, 3, 3)
     xo = x_obs[idx]  # (H, 3, 2)
     f = torch.cat([xo, torch.ones(xo.shape[:-1] + (1,), dtype=xo.dtype, device=xo.device)], -1)

@@ -16,14 +16,14 @@ leaves of a state (``prev_desc`` outside sift-sift mode) in ``in_dims``/``out_di
 
 Decisions, against the JAX package's batched step:
 
-- **Randomness.** The PnP minimal sets of all streams are one draw of shape (S, ...)
-  from the one ``torch.Generator``, under ``randomness="different"``: one
-  ``multinomial`` for S streams, so the launches do not grow with S, and the streams
-  draw different samples. Stream s therefore does not repeat the draws of a
-  single-stream run with the same seed (as the JAX package's stream s, keyed by
-  ``split(key, S)[s]``, does not repeat an unsplit run). Tests inject the samples as a
-  tensor, (S, n_hyp, 3) for a step and (S, chunk, n_hyp, 3) for a chunk, in place of
-  the generator.
+- **Randomness.** The JAX package's: the steps take keys, (S, 2) a frame and
+  (S, chunk, 2) a chunk, made as its callers make them (:func:`stream_keys`: stream s
+  keyed by ``split(PRNGKey(seed), S)[s]``; :func:`chunk_keys`: each stream's chain split
+  per chunk as the single-stream host loop splits its own). The uniforms of all the keys
+  are made on the device in one call (``pipeline.uniforms_fn``), so the launches do not
+  grow with S, and stream s draws what the JAX package's stream s draws. Tests inject
+  the draws as a tensor instead, (S, n_hyp, 3) for a step and (S, chunk, n_hyp, 3) for
+  a chunk: uniforms (floating point) or PnP minimal sets (integer).
 - **The BA cadence.** One host mirror of ``frame_idx`` per stream (the caller's, as in
   ``pipeline.make_chunk_fn``). At a frame where any stream is on its cadence, the
   vmapped ``ba_step`` runs on all streams and ``torch.where`` over the stream dim keeps
@@ -53,14 +53,17 @@ Decisions, against the JAX package's batched step:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
 from lcvo_tpu_torch.core import state as st
 from lcvo_tpu_torch.core.state import resolve_device
 from lcvo_tpu_torch.parallel.mesh import capturable, mesh_from_config, psum
-from lcvo_tpu_torch.pipeline import make_ba_step, make_process_frame
+from lcvo_tpu_torch.pipeline import (draws_of, frame_step, make_ba_step, make_process_frame,
+                                     uniforms_fn)
 from lcvo_tpu_torch.solve.ba import window as win_mod
+from lcvo_tpu_torch.utils import jax_random
 from lcvo_tpu_torch.utils.graphs import compile_step
 
 
@@ -72,6 +75,21 @@ def _dims(tree, dim=0):
 def _broadcast(tree, n: int):
     return tree_map(lambda x: None if x is None else x[None].expand((n,) + x.shape).clone(),
                     tree)
+
+
+def stream_keys(seed: int, n_streams: int) -> np.ndarray:
+    """Each stream's key, as the JAX package's callers make them:
+    ``split(PRNGKey(seed), n_streams)``, (S, 2) uint32."""
+    return jax_random.split(jax_random.PRNGKey(seed), n_streams)
+
+
+def chunk_keys(keys: np.ndarray, chunk: int) -> tuple[np.ndarray, np.ndarray]:
+    """The keys of one chunk for every stream: each stream's chain ``keys`` (S, 2) split
+    as the single-stream host loop splits its own per chunk (``key, k = split(key)``,
+    then ``split(k, chunk)``). Returns the chains' next keys (S, 2) and the chunk's keys
+    (S, chunk, 2)."""
+    nxt = jax_random.split(keys)
+    return nxt[:, 0], jax_random.split(nxt[:, 1], chunk)
 
 
 def stack_streams(trees: list):
@@ -114,26 +132,20 @@ def _pool(dev: torch.device):
     return torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
 
 
-def _vmapped_frame(pf, states, images, gen_or_samples):
-    """``process_frame`` over the stream dim: with injected samples (S, n_hyp, 3), or
-    with one draw for all streams from a generator."""
-    samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
-    gen = None if samples is not None else gen_or_samples
+def _vmapped_frame(pf, states, images, draws):
+    """``process_frame`` over the stream dim, stream s drawing from ``draws[s]``
+    (n_hyp, 3): uniforms, or injected minimal sets (integer)."""
     d = _dims(states)
-    if samples is not None:
-        return torch.func.vmap(
-            lambda s, im, idx: pf(s, im, None, pnp_sampler=lambda valid: idx),
-            in_dims=(d, 0, 0), out_dims=(d, 0))(states, images, samples)
-    return torch.func.vmap(lambda s, im: pf(s, im, gen), in_dims=(d, 0), out_dims=(d, 0),
-                           randomness="different")(states, images)
+    return torch.func.vmap(frame_step(pf), in_dims=(d, 0, 0), out_dims=(d, 0))(
+        states, images, draws)
 
 
 def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
     """The multi-stream step.
 
-    Returns ``step(states, images, gen_or_samples) -> (states, results, agg)``: every
-    argument and result has a leading stream dim; ``gen_or_samples`` is a
-    ``torch.Generator`` on ``device``, or injected PnP samples (S, n_hyp, 3); ``agg``
+    Returns ``step(states, images, keys) -> (states, results, agg)``: every argument and
+    result has a leading stream dim; ``keys`` (S, 2) are the streams' step keys (numpy
+    uint32 or an integer tensor), or a tensor (S, n_hyp, 3) of injected draws; ``agg``
     holds the sums over the streams of ``n_tracked``, ``n_inliers``, ``n_promoted`` and
     ``pose_ok`` as 0-d tensors on the device.
 
@@ -150,14 +162,15 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
     mesh, axis = _mesh_of(cfg, mesh, axis, dev)
     pf = make_process_frame(cfg, K, dev)
     in_graph = mesh is not None and capturable(mesh, axis)
+    uniforms = uniforms_fn(cfg.ransac.pnp_hypotheses, dev, dict(pool=_pool(dev)))
 
     def fleet(agg):
         # the fleet's sums: one collective for the four
         total = psum(torch.stack(list(agg.values())), mesh, axis)
         return dict(zip(agg, total.unbind()))
 
-    def local(states, images, gen_or_samples):
-        states, results = _vmapped_frame(pf, states, images, gen_or_samples)
+    def local(states, images, draws):
+        states, results = _vmapped_frame(pf, states, images, draws)
         agg = {
             "tracked": torch.sum(results.n_tracked),
             "inliers": torch.sum(results.n_inliers),
@@ -170,8 +183,8 @@ def make_multistream_step(cfg, K, mesh=None, axis: str = "data", device="cuda"):
                             name="multistream_step",
                             capture_mode="thread_local" if in_graph else "global")
 
-    def step(states, images, gen_or_samples):
-        states, results, agg = compiled(states, images, gen_or_samples)
+    def step(states, images, keys):
+        states, results, agg = compiled(states, images, draws_of(keys, uniforms, 2))
         if mesh is not None and not in_graph:
             agg = fleet(agg)
         return states, results, agg
@@ -195,11 +208,11 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
     per frame the vmapped ``process_frame`` and, on the BA cadence, the vmapped keyframe
     step.
 
-    Returns ``chunk_step(carry, frames (S, chunk, H, W), gen_or_samples,
+    Returns ``chunk_step(carry, frames (S, chunk, H, W), keys (S, chunk, 2),
     frame_idx=None) -> (carry', (R (S, chunk, 3, 3), t (S, chunk, 3), pose_ok (S, chunk),
-    n_inliers (S, chunk)))`` with ``carry`` = states, or ``(states, windows)`` under BA.
-    ``gen_or_samples``: a ``torch.Generator`` on ``device``, or injected samples
-    (S, chunk, n_hyp, 3). ``frame_idx``: the streams' ``state.frame_idx`` at the start
+    n_inliers (S, chunk)))`` with ``carry`` = states, or ``(states, windows)`` under BA,
+    as the JAX package's. ``keys`` may also be a tensor (S, chunk, n_hyp, 3) of injected
+    draws. ``frame_idx``: the streams' ``state.frame_idx`` at the start
     of the chunk as Python ints (one for all, or one per stream), the caller's mirror;
     left out, it is read from the device once, which waits for it.
 
@@ -213,8 +226,9 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
     pf = make_process_frame(cfg, K, dev)
     ba_step = make_ba_step(cfg, K, dev) if ba else None
     kw = dict(donate=cfg.runtime.donate_state, pool=_pool(dev))
-    frame = compile_step(lambda states, images, g: _vmapped_frame(pf, states, images, g),
+    frame = compile_step(lambda states, images, u: _vmapped_frame(pf, states, images, u),
                          name="multistream_frame", **kw)
+    uniforms = uniforms_fn(cfg.ransac.pnp_hypotheses, dev, dict(pool=kw["pool"]))
 
     def keyframes(carry, select):
         """The vmapped keyframe step on every stream; ``select``: kept only for the
@@ -230,8 +244,8 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
 
     keyframe = compile_step(keyframes, name="multistream_keyframe", **kw) if ba else None
 
-    def chunk_step(carry, frames, gen_or_samples, frame_idx=None):
-        samples = gen_or_samples if torch.is_tensor(gen_or_samples) else None
+    def chunk_step(carry, frames, keys, frame_idx=None):
+        draws = draws_of(keys, uniforms, 3)
         S = frames.shape[0]
         if frame_idx is None:
             frame_idx = (carry[0] if ba else carry).frame_idx.tolist()
@@ -242,8 +256,7 @@ def make_multistream_chunk_step(cfg, K, mesh=None, axis: str = "data", device="c
         states, windows = carry if ba else (carry, None)
         outs = []
         for j in range(frames.shape[1]):
-            states, res = frame(states, frames[:, j],
-                                gen_or_samples if samples is None else samples[:, j])
+            states, res = frame(states, frames[:, j], draws[:, j])
             outs.append(res)
             due = [(f + j + 1) % every == 0 for f in frame_idx] if ba else [False]
             if any(due):

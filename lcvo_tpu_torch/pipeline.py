@@ -1,7 +1,7 @@
 """The Markovian VO state machine: bootstrap + per-frame processing (port of
 ``lcvo_tpu/pipeline.py``, the default path).
 
-    state_i, result_i = process_frame(state_{i-1}, I_i, gen)
+    state_i, result_i = process_frame(state_{i-1}, I_i, u_i)
 
 One frame runs pyramid build → joint KLT over tracks and candidates (the CUDA
 block-extraction kernel on the card) → PnP-RANSAC localization → inlier filtering →
@@ -17,6 +17,12 @@ collapsed, and saves and resumes checkpoints. On the card it replays the per-fra
 and the keyframe step as CUDA graphs with the state donated, and the bootstrap's pieces
 as CUDA graphs of their own (``utils/graphs.py``, where the JAX package jits them); the
 ``make_*`` functions return the eager steps, as the JAX package's return unjitted ones.
+
+The randomness is the JAX package's (``utils/jax_random.py``): the host loop keeps its
+key chain (``PRNGKey(cfg.seed)``, split at every bootstrap, frame and chunk as the JAX
+package splits it), ``two_view_init`` takes its key, and a step takes the uniforms of
+its key's PnP draw (``u_i``), computed on the device for a whole chunk at once, so one
+seed gives both packages the same RANSAC samples.
 
 Ported: the ``shi-mask``/``harris-mask``/``sift-mask``/``sift-sift`` candidate modes,
 the KLT and the SIFT-matching bootstrap, the eight-point and five-point essential
@@ -46,6 +52,7 @@ from lcvo_tpu_torch.ops.pyramid import build_pyramid
 from lcvo_tpu_torch.solve.ba import window as win_mod
 from lcvo_tpu_torch.utils import checkpoint as ckpt
 from lcvo_tpu_torch.utils import graphs
+from lcvo_tpu_torch.utils import jax_random
 
 
 class FrameResult(NamedTuple):
@@ -94,10 +101,11 @@ def _K_tensor(K, device) -> torch.Tensor:
 def make_process_frame(cfg: VOConfig, K, device="cuda"):
     """The per-frame step for a fixed config and intrinsics.
 
-    ``process_frame(state, image, gen, pnp_sampler=None)``: ``image`` (H, W) on the
-    state's device, any dtype (uint8 frames are cast on the device); ``gen`` the
-    generator the PnP minimal sets are drawn from. ``pnp_sampler(valid) -> (H, 3)``
-    replaces that draw (tests inject the JAX package's samples)."""
+    ``process_frame(state, image, u, pnp_sampler=None)``: ``image`` (H, W) on the
+    state's device, any dtype (uint8 frames are cast on the device); ``u`` (n_hyp, 3)
+    the uniforms the PnP minimal sets are drawn from, those of the JAX package's step
+    key (:func:`uniforms_fn`). ``pnp_sampler(valid) -> (H, 3)`` replaces that draw
+    (tests inject minimal sets)."""
     dev = resolve_device(device)
     Kt = _K_tensor(K, dev)
     fx = float(np.asarray(K)[0, 0])
@@ -115,14 +123,14 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
                     for l in range(n_lvl))
     mode = cfg.find_new_candidates_method
 
-    def process_frame(state: st.VOState, image: torch.Tensor, gen=None, pnp_sampler=None):
+    def process_frame(state: st.VOState, image: torch.Tensor, u=None, pnp_sampler=None):
         with record_function("lcvo.pyramid"):
             image = image.to(torch.float32)
             pyr_new = build_pyramid(image.to(pyr_dtype), kltc.levels)
         with record_function("lcvo.klt"):
             tracks, cands, n_tracked = _track(state, pyr_new)
         with record_function("lcvo.pnp"):
-            R, t, pose_ok, n_inl, tracks, rms = _localize(state, tracks, gen, pnp_sampler)
+            R, t, pose_ok, n_inl, tracks, rms = _localize(state, tracks, u, pnp_sampler)
         with record_function("lcvo.map"):
             tracks, cands, n_promoted = _update_map(tracks, cands, R, t)
         with record_function("lcvo.detect"):
@@ -176,11 +184,11 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
                                      age=state.cands.age + 1)
         return tracks, cands, tracks.count()
 
-    def _localize(state, tracks, gen, pnp_sampler):
+    def _localize(state, tracks, u, pnp_sampler):
         # ------ 2. PnP-RANSAC localization ------
         x_obs = geo.normalize_points(tracks.P, Kt)
         R, t, inl, n_inl = pnp.pnp_ransac(
-            gen, tracks.X, x_obs, tracks.valid, thresh=pnp_thresh_n,
+            u, tracks.X, x_obs, tracks.valid, thresh=pnp_thresh_n,
             n_hyp=cfg.ransac.pnp_hypotheses, refine_iters=cfg.ransac.refine_iters,
             idx=None if pnp_sampler is None else pnp_sampler(tracks.valid),
         )
@@ -292,7 +300,10 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
 def make_bootstrap_fns(cfg: VOConfig, K, device="cuda"):
     """The pieces of the sequential-KLT two-view bootstrap: ``detect0(image)``,
     ``track_pair(pyr0, pyr1, pts, valid)`` and
-    ``two_view_init(gen, pts0, pts1, valid, e_idx=None)``."""
+    ``two_view_init(key, pts0, pts1, valid, e_idx=None)``: ``key`` the JAX package's
+    bootstrap key as a (2,) int64 tensor on the device, whose uniforms the essential
+    matrix's minimal sets are drawn from; ``e_idx`` injects the minimal sets instead
+    (``key`` None)."""
     dev = resolve_device(device)
     Kt = _K_tensor(K, dev)
     fx = float(np.asarray(K)[0, 0])
@@ -319,13 +330,15 @@ def make_bootstrap_fns(cfg: VOConfig, K, device="cuda"):
         )
         return new_pts, valid & ok
 
-    def two_view_init(gen, pts0, pts1, valid, e_idx=None):
+    def two_view_init(key, pts0, pts1, valid, e_idx=None):
         """E-RANSAC + cheirality + triangulation between the bootstrap endpoints.
         Returns (R, t (unit baseline), X (N,3) cam0-frame points, ok mask, n_inliers)."""
         x0 = geo.normalize_points(pts0, Kt)
         x1 = geo.normalize_points(pts1, Kt)
+        u = None if key is None else jax_random.uniform(
+            key, epipolar.draw_shape(cfg.ransac.e_hypotheses, cfg.ransac.e_solver))
         E, inl, n_inl = epipolar.essential_ransac(
-            gen, x0, x1, valid, thresh=cfg.ransac.e_thresh_px / fx,
+            u, x0, x1, valid, thresh=cfg.ransac.e_thresh_px / fx,
             n_hyp=cfg.ransac.e_hypotheses, solver=cfg.ransac.e_solver, idx=e_idx,
         )
         R, t, _ = epipolar.recover_pose(E, x0, x1, inl)
@@ -381,14 +394,63 @@ def keyframes_in(frame_idx: int, n: int, every: int) -> int:
     return (frame_idx + n) // every - frame_idx // every
 
 
+def pnp_key(keys):
+    """The key the JAX package's step draws its PnP minimal sets from, for each step key
+    of ``keys (..., 2)``: ``k_pnp`` of its ``k_pnp, k_det = split(key)`` (``k_det`` is
+    unused there too). Numpy keys stay on the host, tensors on their device."""
+    return jax_random.split(keys)[..., 0, :]
+
+
+def keys_to_device(keys, device) -> torch.Tensor:
+    """Keys (..., 2) as int64 on ``device``, with no wait for the card: a host array
+    goes through pinned memory, copied behind the work already queued."""
+    dev = resolve_device(device)
+    t = keys if torch.is_tensor(keys) else torch.from_numpy(np.asarray(keys).astype(np.int64))
+    t = t.to(torch.int64)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def uniforms_fn(n_hyp: int, device, compile_kw: dict | None = None):
+    """``uniforms(keys (..., 2)) -> (..., n_hyp, 3)`` float32 on ``device``: the uniforms
+    of the JAX package's PnP draw for each of its step keys (:func:`pnp_key` on the
+    keys' side, then ``uniform(k_pnp, (n_hyp, 3))`` on the device), all keys of a chunk
+    at once. ``compile_kw``: compile the device part (``graphs.compile_step``'s
+    arguments), as the host loops do; left out, it runs eagerly."""
+    dev = resolve_device(device)
+
+    def uniform(k):
+        return jax_random.uniform(k, (n_hyp, 3))
+
+    fn = uniform if compile_kw is None else graphs.compile_step(
+        uniform, donate=False, name="pnp_uniforms", **compile_kw)
+
+    def uniforms(keys):
+        return fn(keys_to_device(pnp_key(keys), dev))
+
+    uniforms.compiled = None if compile_kw is None else fn
+    return uniforms
+
+
+def draws_of(keys, uniforms, key_dims: int):
+    """The draws of a step or chunk: the uniforms of ``keys`` (``key_dims`` dims, the
+    last of 2), or ``keys`` as they are when they are a tensor of more dims: injected
+    draws, uniforms (floating point) or PnP minimal sets (integer)."""
+    if torch.is_tensor(keys) and keys.dim() > key_dims:
+        return keys
+    return uniforms(keys)
+
+
 def frame_step(process):
-    """``process_frame`` with its randomness as one argument: ``step(state, image, gen)``
-    where ``gen`` is a generator or injected PnP samples (n_hyp, 3). The form a compiled
-    step takes (a callable cannot be a graph's argument)."""
-    def step(state, image, gen):
-        if torch.is_tensor(gen):
-            return process(state, image, None, pnp_sampler=lambda valid: gen)
-        return process(state, image, gen)
+    """``process_frame`` with its randomness as one argument: ``step(state, image, draw)``
+    where ``draw`` (n_hyp, 3) is either the uniforms of the step's key (floating point)
+    or injected PnP minimal sets (integer). The form a compiled step takes (a callable
+    cannot be a graph's argument)."""
+    def step(state, image, draw):
+        if not torch.is_floating_point(draw):
+            return process(state, image, None, pnp_sampler=lambda valid: draw)
+        return process(state, image, draw)
 
     return step
 
@@ -403,25 +465,27 @@ def carry_step(ba_step):
     return step
 
 
-def chunk_loop(step, keyframe_step=None, every: int = 1, on_refine=None):
+def chunk_loop(step, uniforms, keyframe_step=None, every: int = 1, on_refine=None):
     """The chunk step over a per-frame step (:func:`frame_step`'s form) and, with BA, a
     keyframe step (:func:`carry_step`'s form) on the cadence ``every``: the Python loop
-    that stands for the JAX package's ``lax.scan`` with BA under ``lax.cond``. The steps
-    may be eager or compiled (``utils/graphs.py``); :func:`make_chunk_fn` documents the
-    signature."""
+    that stands for the JAX package's ``lax.scan`` with BA under ``lax.cond``.
+    ``uniforms`` (:func:`uniforms_fn`) turns the chunk's keys into its frames' draws in
+    one call. The steps may be eager or compiled (``utils/graphs.py``);
+    :func:`make_chunk_fn` documents the signature."""
     def stack(outs):
         return (torch.stack([r.R for r in outs]), torch.stack([r.t for r in outs]),
                 torch.stack([r.pose_ok for r in outs]),
                 torch.stack([r.n_inliers for r in outs]))
 
-    def chunk_fn(carry, frames, gen, frame_idx=None):
+    def chunk_fn(carry, frames, keys, frame_idx=None):
         ba = keyframe_step is not None
         state, window = carry if ba else (carry, None)
         if ba and frame_idx is None:
             frame_idx = int(state.frame_idx)
+        draws = draws_of(keys, uniforms, 2)
         outs = []
         for j in range(frames.shape[0]):
-            state, res = step(state, frames[j], gen[j] if torch.is_tensor(gen) else gen)
+            state, res = step(state, frames[j], draws[j])
             outs.append(res)
             if ba and (frame_idx + j + 1) % every == 0:
                 (state, window), ba_res = keyframe_step((state, window))
@@ -433,12 +497,14 @@ def chunk_loop(step, keyframe_step=None, every: int = 1, on_refine=None):
 
 
 def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
-    """``chunk_fn(carry, frames (chunk,H,W), gen, frame_idx=None) -> (carry',
+    """``chunk_fn(carry, frames (chunk,H,W), keys (chunk,2), frame_idx=None) -> (carry',
     (R (chunk,3,3), t (chunk,3), pose_ok (chunk,), n_inliers (chunk,)))``:
     ``process_frame`` over a chunk of frames, a Python loop in place of ``lax.scan``,
-    with ``carry = state`` (no BA) or ``(state, window)`` (BA). Nothing is read back.
-    ``gen`` may also be a tensor of PnP minimal sets (chunk, n_hyp, 3), injected frame
-    by frame in place of the draws (tests feed the same samples to the batched step).
+    with ``carry = state`` (no BA) or ``(state, window)`` (BA), frame j drawing from
+    ``keys[j]`` as the JAX package's does (numpy uint32 or an integer tensor). Nothing is
+    read back. ``keys`` may also be a tensor (chunk, n_hyp, 3) of each frame's draw:
+    uniforms (floating point) or PnP minimal sets (integer), injected frame by frame
+    (tests feed the same samples to the batched step).
 
     With BA the keyframe push and window refine run inside the loop, on the cadence of
     the per-frame path, and the recorded pose is the one before the refine. The
@@ -449,15 +515,20 @@ def make_chunk_fn(cfg: VOConfig, K, device="cuda", on_refine=None):
     JAX package's ``make_chunk_fn`` returns an unjitted function:
     :meth:`VisualOdometry.make_chunk_step` is the compiled chunk step."""
     step = frame_step(make_process_frame(cfg, K, device))
+    uniforms = uniforms_fn(cfg.ransac.pnp_hypotheses, device)
     if not cfg.ba.enabled:
-        return chunk_loop(step)
-    return chunk_loop(step, carry_step(make_ba_step(cfg, K, device)), cfg.ba.keyframe_every,
-                      on_refine)
+        return chunk_loop(step, uniforms)
+    return chunk_loop(step, uniforms, carry_step(make_ba_step(cfg, K, device)),
+                      cfg.ba.keyframe_every, on_refine)
 
 
 # ---------------------------------------------------------------------------
 # Host loop
 # ---------------------------------------------------------------------------
+
+
+# step keys whose uniforms :meth:`VisualOdometry.step` makes at once (a chunk's worth)
+DRAWS_AHEAD = 16
 
 
 class VisualOdometry:
@@ -478,9 +549,10 @@ class VisualOdometry:
         self.cfg = cfg
         self.K = np.asarray(K, np.float64)
         self.state: st.VOState | None = None
-        # counterpart of jax.random.PRNGKey(cfg.seed): one explicit generator
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(cfg.seed)
+        # the JAX package's key chain, on the host: (2,) uint32
+        self._key = jax_random.PRNGKey(cfg.seed)
+        # uniforms of the chain's next step keys, made ahead (see _step_uniforms)
+        self._ahead: dict = {}
         self.trajectory: list[np.ndarray] = []  # camera centers (world)
         self.poses: list[np.ndarray] = []       # (4,4) cam→world, one per trajectory entry
         self.pose_ok_flags: list[bool] = []     # per-entry health (False: held/weak pose)
@@ -510,15 +582,18 @@ class VisualOdometry:
         burst of any length replays the same graph), ``two_view_init``, the pyramid of
         one frame and, where the bootstrap describes frames, the SIFT features of one
         frame and (SIFT init) ``mutual_match``. One memory pool for all of them: they
-        never run at the same time. The generator is an argument of the per-frame step
-        and of ``two_view_init``, and each graph registers it from there. ``capture`` is
-        the CPU tests' stand-in for the CUDA capture (``utils/graphs.py``)."""
+        never run at the same time. The randomness is an argument: ``two_view_init``
+        takes its key, the per-frame step its uniforms, which ``_uniforms`` (compiled
+        too) makes for all the frames of a chunk at once. ``capture`` is the CPU tests'
+        stand-in for the CUDA capture (``utils/graphs.py``)."""
         cfg = self.cfg
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         kw = dict(donate=cfg.runtime.donate_state, pool=pool, capture=capture)
         self._process = graphs.compile_step(
             frame_step(make_process_frame(cfg, self.K, self.device)),
             name="process_frame", **kw)
+        self._uniforms = uniforms_fn(cfg.ransac.pnp_hypotheses, self.device,
+                                     dict(pool=pool, capture=capture))
         self._ba = None
         if self.window is not None:
             self._ba = graphs.compile_step(
@@ -551,8 +626,9 @@ class VisualOdometry:
 
     def _compiled(self) -> list:
         """Every compiled step of this host loop."""
-        return [c for c in (self._process, self._ba, self._pyramid, self._detect0,
-                            self._track_pair, self._two_view, self._sift, self._match)
+        return [c for c in (self._process, self._uniforms.compiled, self._ba, self._pyramid,
+                            self._detect0, self._track_pair, self._two_view, self._sift,
+                            self._match)
                 if c is not None]
 
     def graph_stats(self) -> dict:
@@ -562,6 +638,28 @@ class VisualOdometry:
         steps = self._compiled()
         return {"graphs": [g for c in steps for g in c.stats()],
                 "pool_bytes": max((c.pool_bytes() for c in steps), default=0)}
+
+    def _next_key(self) -> np.ndarray:
+        """The next key of the chain, as the JAX package's ``_next_key`` splits it."""
+        self._key, k = jax_random.split(self._key)
+        return k
+
+    def _step_uniforms(self, key: np.ndarray) -> torch.Tensor:
+        """The uniforms of the step key ``key`` for :meth:`step`. They are made for the
+        next ``DRAWS_AHEAD`` keys the chain would hand out, in one replay, and kept by key:
+        per frame one replay of a batch of 16 costs the card about what one of a single
+        key does. A bootstrap in between takes a key, so the kept ones are not asked for
+        again and the next step makes a new batch."""
+        u = self._ahead.pop(key.tobytes(), None)
+        if u is not None:
+            return u
+        keys, chain = [key], self._key
+        for _ in range(DRAWS_AHEAD - 1):
+            chain, k = jax_random.split(chain)
+            keys.append(k)
+        draws = self._uniforms(np.stack(keys))
+        self._ahead = {k.tobytes(): draws[i] for i, k in enumerate(keys[1:], 1)}
+        return draws[0]
 
     def _frame(self, f) -> torch.Tensor:
         """A frame on the device in its own dtype (uint8 stays uint8; the step casts)."""
@@ -605,7 +703,8 @@ class VisualOdometry:
             pts = pts0
             for i in range(len(imgs) - 1):
                 pts, ok = self._track_pair(pyrs[i], pyrs[i + 1], pts, ok)
-        R, t, X, good, n_inl = self._two_view(self._gen, pts0, pts, ok)
+        R, t, X, good, n_inl = self._two_view(keys_to_device(self._next_key(), dev), pts0,
+                                              pts, ok)
         if scale is not None and np.isfinite(scale) and scale > 1e-6:
             # uniform scaling of the two-view geometry preserves all observations
             t = t * float(scale)
@@ -671,7 +770,8 @@ class VisualOdometry:
     # -- per-frame ---------------------------------------------------------
     def step(self, image) -> FrameResult:
         assert self.state is not None, "call bootstrap() first"
-        self.state, res = self._process(self.state, self._frame(image), self._gen)
+        u = self._step_uniforms(self._next_key())
+        self.state, res = self._process(self.state, self._frame(image), u)
         self._frame_idx += 1
         if self.window is not None and self._frame_idx % self.cfg.ba.keyframe_every == 0:
             self._ba_step()
@@ -762,16 +862,16 @@ class VisualOdometry:
         """The chunk step the host loop runs (the JAX package jits it): a Python loop
         that replays this instance's compiled per-frame step and, on the cadence of the
         host mirror, its compiled keyframe step, with BA refines counted into
-        :meth:`ba_refine_stats`. Returns ``chunk_fn(carry, frames (chunk, H, W), gen,
-        frame_idx=None) -> (carry', (R (chunk,3,3), t (chunk,3), pose_ok, n_inliers))``
+        :meth:`ba_refine_stats`. Returns ``chunk_fn(carry, frames (chunk, H, W), keys
+        (chunk, 2), frame_idx=None) -> (carry', (R (chunk,3,3), t (chunk,3), pose_ok, n_inliers))``
         as :func:`make_chunk_fn`; the carry is :meth:`chunk_carry` (donated: with
         ``runtime.donate_state`` the carry that comes back is the same buffers),
         ``frame_idx`` the host mirror ``self._frame_idx``, and the caller hands the carry
         back with :meth:`set_chunk_carry`. ``chunk`` is kept for the JAX package's
         signature: the step takes any number of frames."""
         if self.window is None:
-            return chunk_loop(self._process)
-        return chunk_loop(self._process, self._ba, self.cfg.ba.keyframe_every,
+            return chunk_loop(self._process, self._uniforms)
+        return chunk_loop(self._process, self._uniforms, self._ba, self.cfg.ba.keyframe_every,
                           self._note_refine)
 
     def chunk_carry(self):
@@ -865,8 +965,9 @@ class VisualOdometry:
 
         buf = take(chunk)
         while len(buf) == chunk:
+            keys = jax_random.split(self._next_key(), chunk)
             batch = torch.from_numpy(np.stack([np.asarray(f) for f in buf])).to(self.device)
-            carry, (Rs, ts, ok, ninl) = chunk_fn(self.chunk_carry(), batch, self._gen,
+            carry, (Rs, ts, ok, ninl) = chunk_fn(self.chunk_carry(), batch, keys,
                                                  frame_idx=self._frame_idx)
             self.set_chunk_carry(carry, chunk)
             # the chunk is queued on the device: pull the next frames meanwhile
@@ -1020,10 +1121,10 @@ class VisualOdometry:
     # -- checkpoint / resume --------------------------------------------------
     def save(self, path: str, produced: int):
         """Checkpoint the full host-loop state (VO state, BA window, trajectory, the
-        generator's state, frame counter) so a long replay resumes bit-exactly."""
+        PRNG key, frame counter) so a long replay resumes bit-exactly, in either package."""
         ckpt.save_checkpoint(
             path, self.state, window=self.window, trajectory=self.trajectory,
-            frame_idx=produced, generator=self._gen, poses=self.poses,
+            frame_idx=produced, rng_key=self._key, poses=self.poses,
             pose_ok_flags=self.pose_ok_flags,
             extras={"n_rebootstraps": self.n_rebootstraps},
         )
@@ -1031,24 +1132,17 @@ class VisualOdometry:
     def resume(self, path: str) -> int:
         """Restore a :meth:`save` checkpoint; returns the absolute frame index to
         continue from (feed ``frames[produced:]`` to :meth:`run_continue` or
-        :meth:`run_chunked_continue`). A checkpoint of the JAX package restores the
-        state and the window too; its PRNG key has no meaning here, so the generator
-        stays as seeded."""
+        :meth:`run_chunked_continue`). A checkpoint of the JAX package resumes here with
+        the JAX package's next draws: the state, the window and the key chain."""
         cfg = self.cfg
         state_tmpl = st.make_vo_state(cfg, (cfg.image_height, cfg.image_width), self.device)
-        state, window, traj, produced, rng, poses, flags, extras = ckpt.load_checkpoint(
+        state, window, traj, produced, key, poses, flags, extras = ckpt.load_checkpoint(
             path, state_tmpl, self.window)
         if produced is None:
             raise ValueError(f"checkpoint {path} has no frame counter: not a checkpoint of "
                              f"the host loop")
-        if rng is not None:
-            rng_state, rng_device = rng
-            if rng_device != self.device.type:
-                raise ValueError(
-                    f"checkpoint {path} holds the state of a {rng_device!r} generator, which "
-                    f"a {self.device.type!r} generator cannot continue: resume on the device "
-                    f"type it was saved on")
-            self._gen.set_state(rng_state)
+        if key is not None:
+            self._key = key
         self.n_rebootstraps = int(extras.get("n_rebootstraps", 0))
         self.state = graphs.place(self.state, state)
         # the BA cadence follows the mirror: bring it back with the state

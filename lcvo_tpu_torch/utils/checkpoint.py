@@ -7,11 +7,10 @@ mid-sequence, and a crashed run restarts from its last checkpoint.
 
 The file format is the JAX package's: the same keys (``state:.tracks/.P``,
 ``state:.prev_pyramid/[0]``, ``window:.head``, ``trajectory``, ``frame_idx_host``,
-``extra:<name>`` ...), dtypes and shapes, from a walk over the NamedTuples here, so a
-checkpoint written by either package restores the state and the window in the other.
-The random stream is the exception: the JAX package stores its PRNG key as ``rng_key``;
-this one stores the ``torch.Generator`` state as ``torch_rng_state`` with the
-generator's device type beside it (``torch_rng_device``), and ignores ``rng_key``.
+``extra:<name>`` ...), dtypes and shapes, from a walk over the NamedTuples here, and the
+PRNG key as ``rng_key`` ((2,) uint32: the port draws from the JAX package's random
+stream, ``utils/jax_random.py``), so a checkpoint written by either package resumes in
+the other with the same state, window and next draws.
 """
 
 from __future__ import annotations
@@ -62,10 +61,10 @@ def _flatten(tree) -> dict:
 
 
 def save_checkpoint(path: str, state, window=None, trajectory=None,
-                    frame_idx: int | None = None, generator: torch.Generator | None = None,
-                    poses=None, pose_ok_flags=None, extras: dict | None = None):
+                    frame_idx: int | None = None, rng_key=None, poses=None,
+                    pose_ok_flags=None, extras: dict | None = None):
     """Serialize VO state (+ optional BA window, host-side trajectory and full 4x4
-    poses, and the generator the RANSAC samples are drawn from, needed for bit-exact
+    poses, and the PRNG key the next RANSAC samples are drawn from, needed for bit-exact
     resume) to npz. ``extras``: small host-side scalars (e.g. the recovery counter)
     stored as ``extra:<name>`` keys."""
     payload = {f"state:{k}": v for k, v in _flatten(state).items()}
@@ -81,9 +80,8 @@ def save_checkpoint(path: str, state, window=None, trajectory=None,
         payload["pose_ok_flags"] = np.asarray(pose_ok_flags, bool)
     if frame_idx is not None:
         payload["frame_idx_host"] = np.asarray(frame_idx)
-    if generator is not None:
-        payload["torch_rng_state"] = generator.get_state().numpy()
-        payload["torch_rng_device"] = np.asarray(generator.device.type)
+    if rng_key is not None:
+        payload["rng_key"] = np.asarray(rng_key, dtype=np.uint32)
     # ATOMIC write: a kill mid-write must never leave a truncated archive at the
     # checkpoint path. Write to a temp file in the same directory, fsync, then rename:
     # os.replace is atomic on POSIX, so the path always holds either the old or the new
@@ -102,9 +100,8 @@ def load_checkpoint(path: str, state_template, window_template=None):
 
     Templates supply the STRUCTURE, the device and the dtypes (e.g.
     ``make_vo_state(cfg, shape, device)``); leaves are filled from the file and must
-    match the template's shapes and dtypes exactly. ``rng`` is ``(generator state as a
-    uint8 tensor, device type it was saved on)``, or ``None`` for a file without one
-    (a checkpoint of the JAX package)."""
+    match the template's shapes and dtypes exactly. ``rng`` is the PRNG key, (2,)
+    uint32, or ``None`` for a file without one."""
     data = np.load(path, allow_pickle=False)
 
     def restore(tree, prefix):
@@ -129,10 +126,7 @@ def load_checkpoint(path: str, state_template, window_template=None):
     window = restore(window_template, "window:") if window_template is not None else None
     trajectory = [p for p in data["trajectory"]] if "trajectory" in data else []
     frame_idx = int(data["frame_idx_host"]) if "frame_idx_host" in data else None
-    rng = None
-    if "torch_rng_state" in data:
-        rng = (torch.from_numpy(np.array(data["torch_rng_state"], copy=True)),
-               str(data["torch_rng_device"]))
+    rng = np.array(data["rng_key"], dtype=np.uint32) if "rng_key" in data else None
     poses = [p for p in data["poses"]] if "poses" in data else None
     flags = [bool(f) for f in data["pose_ok_flags"]] if "pose_ok_flags" in data else None
     extras = {k[len("extra:"):]: data[k] for k in data.files if k.startswith("extra:")}

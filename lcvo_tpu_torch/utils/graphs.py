@@ -11,15 +11,15 @@ graph:
   ``torch.cuda.CUDAGraph``; every later call with that key copies its arguments into
   the graph's input buffers (unless they already are those buffers), replays the
   graph and returns its outputs. The key is the argument tree, the shape, dtype and
-  device of each tensor in it, its Python scalars (the counterpart of
-  ``static_argnames``) and the identity of each ``torch.Generator`` in it.
+  device of each tensor in it and its Python scalars (the counterpart of
+  ``static_argnames``).
 - **Warm-up.** Before a capture ``fn`` runs once, eagerly, on copies of the arguments,
   on the capture stream: lazy device constants, library handles and workspaces are made
-  there, outside the capture. Every generator among the arguments has its state saved
-  before the warm-up and put back after it, so the warm-up leaves the arguments and the
-  random stream where the caller left them. Those generators are registered with the
-  graph, so a replay draws what the eager call would draw at that point of the stream;
-  a step draws only from generators it takes as arguments.
+  there, outside the capture, and the arguments stay as the caller left them.
+- **Randomness** is an argument, as in the JAX package, whose steps take a key: the
+  port's steps take the uniforms of that key (``utils/jax_random.py``), an input buffer
+  written before each replay like any other, so a replay draws what the eager call
+  draws.
 - **Donation** (``donate=True``, the counterpart of ``donate_argnums=(0,)``). The first
   argument is the state, and ``fn`` returns its new value first. On the first call the
   state's tensors become the graph's input buffers as they are (adopted, not copied; a
@@ -175,11 +175,9 @@ class _CudaGraphs:
             run()
         cur.wait_stream(self.stream)
 
-    def capture(self, body, generators):
+    def capture(self, body):
         torch.cuda.synchronize(self.device)
         g = torch.cuda.CUDAGraph(keep_graph=True)
-        for gen in generators:
-            g.register_generator_state(gen)
         t0 = time.perf_counter()
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             g.capture_begin(pool=self.pool, capture_error_mode=self.mode)
@@ -276,12 +274,10 @@ class CompiledStep:
     def _key_of(self, x):
         if torch.is_tensor(x):
             return (tuple(x.shape), x.dtype, x.device)
-        if isinstance(x, torch.Generator):
-            return ("generator", id(x))
         if isinstance(x, _SCALARS):
             return (type(x), x)
-        raise TypeError(f"{self.name}: a compiled step takes tensors, generators and Python "
-                        f"scalars in its arguments, got a {type(x).__name__}")
+        raise TypeError(f"{self.name}: a compiled step takes tensors and Python scalars in "
+                        f"its arguments, got a {type(x).__name__}")
 
     def _backend(self, device):
         if self._capture_with is not None:
@@ -303,16 +299,12 @@ class CompiledStep:
         bufs = _unaliased(leaves[:n_don]) + [x.clone() if torch.is_tensor(x) else x
                                              for x in leaves[n_don:]]
         static = tree_unflatten(bufs, spec)
-        gens = [x for x in leaves if isinstance(x, torch.Generator)]
         counts = dict(kernels.LAUNCHES)
 
         copies = tree_unflatten([x.clone() if torch.is_tensor(x) else x for x in bufs], spec)
-        saved = [g.get_state() for g in gens]
         t0 = time.perf_counter()
         backend.warmup(lambda: self.fn(*copies))
         warmup_s = time.perf_counter() - t0
-        for g, s in zip(gens, saved):
-            g.set_state(s)
         del copies
         kernels.LAUNCHES.update(counts)
 
@@ -345,7 +337,7 @@ class CompiledStep:
             return (static[0], *tree_unflatten(rest, rest_spec))
 
         try:
-            handle, info = backend.capture(body, gens)
+            handle, info = backend.capture(body)
         except Exception as exc:
             kernels.LAUNCHES.update(counts)
             raise GraphCaptureError(f"{self.name}: CUDA graph capture failed at {_where(exc)}: "
@@ -383,14 +375,13 @@ class CompiledStep:
 def compile_step(fn, *, donate=True, pool=None, name=None, capture=None, eager=False,
                  capture_mode="global"):
     """``fn`` as a compiled step: CUDA graphs on the card, eager on the CPU (module
-    docstring). The generators ``fn`` draws from are among its arguments, and each is
-    registered with the graph. ``donate``: write the
-    new state (``fn``'s first result) back into the first argument's buffers; ``pool``:
-    a ``torch.cuda.graph_pool_handle()`` to share with other compiled steps; ``eager``:
-    never capture (work the backend cannot capture); ``capture_mode``: CUDA's
-    ``capture_error_mode``, ``"thread_local"`` for a step with an NCCL collective.
-    ``capture`` stands in for the CUDA capture (``warmup(run)``, ``capture(body,
-    generators) -> (handle, info)``, ``replay(handle) -> outputs``) in the CPU tests of
-    the bookkeeping; nothing in the package sets it of its own."""
+    docstring). The randomness ``fn`` draws from is among its tensor arguments.
+    ``donate``: write the new state (``fn``'s first result) back into the first
+    argument's buffers; ``pool``: a ``torch.cuda.graph_pool_handle()`` to share with
+    other compiled steps; ``eager``: never capture (work the backend cannot capture);
+    ``capture_mode``: CUDA's ``capture_error_mode``, ``"thread_local"`` for a step with
+    an NCCL collective. ``capture`` stands in for the CUDA capture (``warmup(run)``,
+    ``capture(body) -> (handle, info)``, ``replay(handle) -> outputs``) in the CPU tests
+    of the bookkeeping; nothing in the package sets it of its own."""
     return CompiledStep(fn, donate=donate, pool=pool, name=name, capture=capture, eager=eager,
                         capture_mode=capture_mode)

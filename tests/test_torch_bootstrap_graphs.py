@@ -7,8 +7,8 @@ The CUDA capture is replaced by ``tests/test_torch_graphs.py``'s stand-in (``Sta
 at that file's size: graphed and eager bootstraps from one seed must agree bit for bit
 for the KLT init (the dataclass defaults) and for the SIFT init
 (``configs/reference.yaml``: SIFT on both endpoint frames, mutual matching, five-point),
-a re-bootstrap must capture nothing new, and the random stream must be the eager one
-across a bootstrap and the steps after it. On the CPU the SVD wrapper is
+a re-bootstrap must capture nothing new, and the key chain must be the eager one across
+a bootstrap and the steps after it. On the CPU the SVD wrapper is
 ``torch.linalg.svd``.
 """
 
@@ -142,8 +142,9 @@ def test_rebootstrap_captures_nothing_new(seq, frames, init):
 
 @pytest.mark.parametrize("init", list(INITS))
 def test_random_stream_after_bootstrap_and_steps_equals_eager(seq, frames, init):
-    """One generator feeds ``two_view_init``'s graph and the per-frame step's: after a
-    bootstrap and 5 steps its state, the poses and the state equal the eager run's."""
+    """One key chain feeds ``two_view_init``'s graph and the per-frame step's draws:
+    after a bootstrap and 5 steps the chain, the poses and the state equal the eager
+    run's."""
     cfg = INITS[init]()
     gap = cfg.bootstrap.frame_gap
     runs = {}
@@ -153,7 +154,7 @@ def test_random_stream_after_bootstrap_and_steps_equals_eager(seq, frames, init)
         res = [vo.step(f) for f in frames[gap + 1: gap + 6]]
         runs[name] = (vo, res)
     (vo, res), (e_vo, e_res) = runs["graphed"], runs["eager"]
-    assert torch.equal(vo._gen.get_state(), e_vo._gen.get_state())
+    assert np.array_equal(vo._key, e_vo._key)
     assert _equal(res, e_res) and _equal(vo.state, e_vo.state)
     assert vo._process.captures() == 1
 

@@ -2,7 +2,9 @@
 dtypes and shapes; a file of either package restores the state and the window in the
 other, leaf for leaf), and the port's counterparts of ``tests/test_checkpoint.py``: a
 run saved mid-sequence and resumed equals the uninterrupted run exactly, per frame and
-chunked, with BA on (one generator on one device: no tolerance is needed).
+chunked, with BA on (the JAX package's key chain comes back: no tolerance is needed).
+Both packages store the PRNG key as ``rng_key``, so a file of either resumes in the
+other with the same next draws (``tests/test_torch_lockstep.py`` runs it across).
 """
 
 import os
@@ -23,6 +25,7 @@ from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.pipeline import VisualOdometry
 from lcvo_tpu_torch.solve.ba import window as twin
 from lcvo_tpu_torch.utils import checkpoint as tckpt
+from lcvo_tpu_torch.utils import jax_random
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,7 +37,6 @@ SMALL = {
     "image_width": 320, "image_height": 128,
 }
 BA = {"enabled": True, "window": 4, "keyframe_every": 3, "gn_iters": 3}
-RNG_KEYS = {"rng_key", "torch_rng_state", "torch_rng_device"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -113,18 +115,14 @@ def _assert_trees_equal(ttree, jtree):
 @pytest.mark.parametrize("mode", ["sift-sift", "shi-mask"])
 def test_checkpoint_keys_dtypes_shapes_match_jax(tmp_path, mode):
     """Every key, dtype, shape and value the port writes equals what the JAX package
-    writes for the carried-over state and window; only the rng entries differ."""
+    writes for the carried-over state, window and PRNG key."""
     (jcfg, jstate, jw), (tcfg, tstate, tw) = _carried(mode)
     pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     jckpt.save_checkpoint(pj, jstate, window=jw, rng_key=jax.random.PRNGKey(3), **HOST)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(5)
-    tckpt.save_checkpoint(pt, tstate, window=tw, generator=gen, **HOST)
+    tckpt.save_checkpoint(pt, tstate, window=tw, rng_key=jax_random.PRNGKey(3), **HOST)
     dj, dt = np.load(pj), np.load(pt)
-    assert set(dj.files) - RNG_KEYS == set(dt.files) - RNG_KEYS
-    assert set(dj.files) & RNG_KEYS == {"rng_key"}
-    assert set(dt.files) & RNG_KEYS == {"torch_rng_state", "torch_rng_device"}
-    for k in set(dt.files) - RNG_KEYS:
+    assert set(dj.files) == set(dt.files)
+    for k in dt.files:
         assert dj[k].dtype == dt[k].dtype and dj[k].shape == dt[k].shape, k
         np.testing.assert_array_equal(dj[k], dt[k], err_msg=k)
     # the keys the format is known by
@@ -132,19 +130,18 @@ def test_checkpoint_keys_dtypes_shapes_match_jax(tmp_path, mode):
               "state:.frame_idx", "state:.prev_pyramid/[0]", "state:.prev_pyramid/[2]",
               "state:.health", "state:.prev_R", "window:.obs_gen", "window:.head",
               "trajectory", "poses", "pose_ok_flags", "frame_idx_host",
-              "extra:n_rebootstraps"):
+              "extra:n_rebootstraps", "rng_key"):
         assert k in dt.files, k
     assert ("state:.prev_desc" in dt.files) == (mode == "sift-sift")
     assert ("state:.prev_desc_valid" in dt.files) == (mode == "sift-sift")
-    assert dt["torch_rng_state"].dtype == np.uint8 and str(dt["torch_rng_device"]) == "cpu"
+    assert dt["rng_key"].dtype == np.uint32 and dt["rng_key"].shape == (2,)
     assert dt["window:.head"].dtype == np.int32 and dt["state:.tracks/.gen"].dtype == np.int32
 
 
 @pytest.mark.parametrize("mode", ["sift-sift", "shi-mask"])
 def test_jax_checkpoint_loads_into_the_port(tmp_path, mode):
     """A file written by the JAX package restores state and window in the port equal to
-    ``state_from_numpy`` / ``window_from_numpy`` of the same trees; it has no generator
-    state."""
+    ``state_from_numpy`` / ``window_from_numpy`` of the same trees, and its PRNG key."""
     (jcfg, jstate, jw), (tcfg, tstate, tw) = _carried(mode, seed=1)
     p = str(tmp_path / "j.npz")
     jckpt.save_checkpoint(p, jstate, window=jw, rng_key=jax.random.PRNGKey(3), **HOST)
@@ -155,7 +152,8 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, mode):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert (state.prev_desc is None) == (mode != "sift-sift")
     assert isinstance(state.prev_pyramid, tuple) and len(state.prev_pyramid) == 3
-    assert rng is None and fidx == 12 and len(traj) == 7 and len(poses) == 7
+    assert np.array_equal(rng, np.asarray(jax.random.PRNGKey(3))) and rng.dtype == np.uint32
+    assert fidx == 12 and len(traj) == 7 and len(poses) == 7
     assert flags == HOST["pose_ok_flags"] and int(extras["n_rebootstraps"]) == 2
 
 
@@ -165,8 +163,7 @@ def test_port_checkpoint_loads_into_jax(tmp_path, mode):
     with a JAX template, leaf for leaf."""
     (jcfg, jstate, jw), (tcfg, tstate, tw) = _carried(mode, seed=2)
     p = str(tmp_path / "t.npz")
-    gen = torch.Generator(device="cpu")
-    tckpt.save_checkpoint(p, tstate, window=tw, generator=gen, **HOST)
+    tckpt.save_checkpoint(p, tstate, window=tw, rng_key=jax_random.PRNGKey(4), **HOST)
     state, window, traj, fidx, key, poses, flags, extras = jckpt.load_checkpoint(
         p, jst.make_vo_state(jcfg, (128, 320)),
         jwin.make_window(jcfg.ba.window, jcfg.state.max_tracks))
@@ -175,21 +172,21 @@ def test_port_checkpoint_loads_into_jax(tmp_path, mode):
     for a, b in zip(jax.tree_util.tree_leaves(state) + jax.tree_util.tree_leaves(window),
                     jax.tree_util.tree_leaves(jstate) + jax.tree_util.tree_leaves(jw)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert key is None and fidx == 12 and len(traj) == 7
+    assert np.array_equal(np.asarray(key), np.asarray(jax.random.PRNGKey(4)))
+    assert fidx == 12 and len(traj) == 7
     assert flags == HOST["pose_ok_flags"] and int(extras["n_rebootstraps"]) == 2
 
 
-def test_jax_checkpoint_resumes_in_the_port_with_the_seeded_generator(tmp_path, seq):
-    """``resume`` of a JAX-written file: state, window, host lists and the mirror of
-    frame_idx come back; the PRNG key is ignored and the generator stays as seeded."""
+def test_jax_checkpoint_resumes_in_the_port_with_its_key(tmp_path, seq):
+    """``resume`` of a JAX-written file: state, window, host lists, the mirror of
+    frame_idx and the PRNG key come back."""
     (jcfg, jstate, jw), (tcfg, tstate, tw) = _carried("sift-sift", seed=3)
     jstate = jstate._replace(frame_idx=jnp.asarray(7, jnp.int32))
     p = str(tmp_path / "j.npz")
     jckpt.save_checkpoint(p, jstate, window=jw, rng_key=jax.random.PRNGKey(3), **HOST)
     vo = VisualOdometry(tcfg, seq.K, device="cpu")
-    fresh = vo._gen.get_state().clone()
     assert vo.resume(p) == 12
-    assert torch.equal(vo._gen.get_state(), fresh)
+    assert np.array_equal(vo._key, np.asarray(jax.random.PRNGKey(3)))
     assert vo._frame_idx == 7 and vo.n_rebootstraps == 2
     assert len(vo.trajectory) == len(vo.poses) == len(vo.pose_ok_flags) == 7
     _assert_trees_equal(vo.state, jstate)
@@ -213,7 +210,7 @@ def test_state_roundtrip(tmp_path, seq, frames):
     # the restored state continues as the live one does
     vo2 = VisualOdometry(cfg, seq.K, device="cpu")
     vo2.state = state2
-    vo2._gen.set_state(vo._gen.get_state())
+    vo2._key = vo._key.copy()
     r_a, r_b = vo.step(frames[12]), vo2.step(frames[12])
     assert torch.equal(r_a.t, r_b.t) and torch.equal(r_a.R, r_b.R)
 
@@ -221,7 +218,7 @@ def test_state_roundtrip(tmp_path, seq, frames):
 @pytest.mark.parametrize("chunked", [False, True], ids=["per_frame", "chunked"])
 def test_host_loop_checkpoint_resume(tmp_path, seq, frames, chunked):
     """A run interrupted mid-sequence and resumed in a fresh VisualOdometry reproduces
-    the uninterrupted trajectory exactly, with BA on: the window, the generator and the
+    the uninterrupted trajectory exactly, with BA on: the window, the PRNG key and the
     mirror of frame_idx (so the BA cadence) all come back."""
     cfg = small(ba=BA)
     p = str(tmp_path / "ck.npz")
@@ -291,7 +288,7 @@ def test_atomic_write_replaces_the_old_file_and_leaves_no_tmp(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["ck.npz"]
     d = np.load(p)
     assert int(d["frame_idx_host"]) == 2 and "window:.head" in d.files
-    assert "trajectory" not in d.files and "torch_rng_state" not in d.files
+    assert "trajectory" not in d.files and "rng_key" not in d.files
 
 
 def test_shape_or_dtype_mismatch_raises(tmp_path):
@@ -324,22 +321,28 @@ def test_bfloat16_pyramid_roundtrips_by_bit_pattern(tmp_path):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
-def test_resume_refuses_a_generator_of_another_device_type(tmp_path, seq, frames):
-    """The state of a CPU generator does not continue a CUDA generator's stream, and
-    the other way round: resume raises and says so."""
+def test_resume_restores_the_key_chain(tmp_path, seq, frames):
+    """The key is the host's (2,) uint32, the same on every device: ``save`` writes the
+    chain where the run left it (one split per bootstrap and per step), ``resume``
+    brings it back, and a file without a key leaves the seeded chain."""
     cfg = small(ba=BA)
     vo = VisualOdometry(cfg, seq.K, device="cpu")
     vo.bootstrap(list(frames[:5]))
-    p, q = str(tmp_path / "ck.npz"), str(tmp_path / "cuda.npz")
-    vo.save(p, 5)
+    vo.step(frames[5])
+    p, q = str(tmp_path / "ck.npz"), str(tmp_path / "nokey.npz")
+    vo.save(p, 6)
+    key = jax.random.PRNGKey(cfg.seed)
+    for _ in range(2):
+        key, _ = jax.random.split(key)
+    np.testing.assert_array_equal(np.load(p)["rng_key"], np.asarray(key))
     d = dict(np.load(p))
-    d["torch_rng_device"] = np.asarray("cuda")
+    del d["rng_key"]
     np.savez(q, **d)
     fresh = VisualOdometry(cfg, seq.K, device="cpu")
-    with pytest.raises(ValueError, match="'cuda' generator"):
-        fresh.resume(q)
-    assert fresh.resume(p) == 5
-    assert torch.equal(fresh._gen.get_state(), vo._gen.get_state())
+    assert fresh.resume(q) == 6
+    np.testing.assert_array_equal(fresh._key, jax_random.PRNGKey(cfg.seed))
+    assert fresh.resume(p) == 6
+    np.testing.assert_array_equal(fresh._key, vo._key)
 
 
 def test_resume_needs_a_frame_counter_and_tolerates_missing_poses(tmp_path, seq, frames):

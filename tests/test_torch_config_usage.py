@@ -47,7 +47,8 @@ def test_every_config_field_is_read_outside_config_py():
 @pytest.mark.parametrize("donate", [True, False])
 def test_donate_state_reaches_compile_step(donate):
     """``runtime.donate_state`` is what the compiled steps of the host loop and of the
-    ``make_multistream_*`` functions donate by, and ``config.py`` no longer says the port ignores it."""
+    ``make_multistream_*`` functions donate by (those of a state; the uniforms of the keys
+    take no state and donate nothing), and ``config.py`` no longer says the port ignores it."""
     import numpy as np
 
     from lcvo_tpu_torch.config import load_config
@@ -60,11 +61,12 @@ def test_donate_state_reaches_compile_step(donate):
     vo = VisualOdometry(cfg, np.eye(3), device="cpu")
     assert isinstance(vo._process, graphs.CompiledStep)
     assert vo._process.donate is donate and vo._ba.donate is donate
+    assert vo._uniforms.compiled.donate is False
     seen = []
     real = graphs.CompiledStep.__init__
 
     def spy(self, fn, **kw):
-        seen.append(kw["donate"])
+        seen.append((kw.get("name"), kw["donate"]))
         real(self, fn, **kw)
 
     graphs.CompiledStep.__init__ = spy
@@ -73,7 +75,8 @@ def test_donate_state_reaches_compile_step(donate):
         streams.make_multistream_chunk_step(cfg, np.eye(3), device="cpu")
     finally:
         graphs.CompiledStep.__init__ = real
-    assert seen == [donate] * 3
+    assert [d for n, d in seen if n != "pnp_uniforms"] == [donate] * 3
+    assert [d for n, d in seen if n == "pnp_uniforms"] == [False] * 2
     assert "port ignores it" not in (PKG / "config.py").read_text()
 
 

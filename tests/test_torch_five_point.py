@@ -26,6 +26,7 @@ from lcvo_tpu.ops import five_point as jfp
 from lcvo_tpu.ops import ransac as jransac
 from lcvo_tpu_torch.ops import epipolar as tepi
 from lcvo_tpu_torch.ops import five_point as tfp
+from lcvo_tpu_torch.utils import jax_random
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -319,11 +320,13 @@ def test_five_point_ransac_pose_with_jax_samples(outlier_frac, seed):
 
 
 def test_five_point_ransac_draws_its_own_samples():
-    """Without idx= the minimal sets come from the generator: n_hyp // 10 samples of
-    five; the pose is still the true one."""
+    """Without idx= the minimal sets are drawn from the uniforms of a key, of
+    ``draw_shape``'s n_hyp // 10 samples of five; the pose is still the true one."""
     x1, x2, R_gt, t_gt = scene(7, n=120, noise=5e-4)
-    gen = torch.Generator().manual_seed(0)
-    E, inl, n = tepi.essential_ransac(gen, T(x1), T(x2), torch.ones(120, dtype=torch.bool),
+    shape = tepi.draw_shape(256, "five_point")
+    assert shape == (25, 5)
+    u = torch.from_numpy(jax_random.uniform(jax_random.PRNGKey(0), shape))
+    E, inl, n = tepi.essential_ransac(u, T(x1), T(x2), torch.ones(120, dtype=torch.bool),
                                       thresh=2e-3, n_hyp=256, solver="five_point")
     R, t, _ = tepi.recover_pose(E, T(x1), T(x2), inl)
     ang = np.degrees(np.arccos(np.clip((np.trace(R.numpy().T @ R_gt) - 1) / 2, -1, 1)))

@@ -1,7 +1,7 @@
 """Geometry, state tables, RANSAC, PnP and the essential-matrix path: the port against
 the JAX package on the same inputs. Random samples are the JAX package's
-(``ops/ransac.py::sample_minimal_sets``), injected into the port, since the two
-frameworks' generators give different numbers from one seed."""
+(``ops/ransac.py::sample_minimal_sets``), injected into the port; the port's own draw
+from the same key is the same (``tests/test_torch_jax_random.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +23,7 @@ from lcvo_tpu_torch.core import state as tst
 from lcvo_tpu_torch.ops import epipolar as tepi
 from lcvo_tpu_torch.ops import pnp as tpnp
 from lcvo_tpu_torch.ops import ransac as transac
+from lcvo_tpu_torch.utils import jax_random
 
 K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
 
@@ -229,8 +230,8 @@ def test_make_vo_state_and_state_from_numpy(rng, H, W):
 def test_sample_minimal_sets_draws_only_valid_points():
     valid = torch.zeros(50, dtype=torch.bool)
     valid[[3, 17, 21, 40]] = True
-    g = torch.Generator().manual_seed(0)
-    idx = transac.sample_minimal_sets(g, 50, valid, 64, 3)
+    u = torch.from_numpy(jax_random.uniform(jax_random.PRNGKey(0), (64, 3)))
+    idx = transac.sample_minimal_sets(u, 50, valid)
     assert idx.shape == (64, 3)
     assert set(idx.flatten().tolist()) <= {3, 17, 21, 40}
 

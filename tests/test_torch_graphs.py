@@ -8,8 +8,8 @@ at the capture, as a replay refreshes a graph's static outputs. A capture execut
 nothing on the card, so the stand-in's capture runs the step once and its first replay
 hands that result back. A replay passes no Python, so the stand-in takes back what the
 launch counters moved inside it. Everything else (keys, buffers, donation, warm-up,
-generators, launch accounting, the host loop's writes into the buffers) is the
-package's own code, as it runs on the card.
+the draws as input buffers, launch accounting, the host loop's writes into the buffers)
+is the package's own code, as it runs on the card.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ from lcvo_tpu_torch import kernels
 from lcvo_tpu_torch.config import load_config
 from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.parallel import streams as ps
-from lcvo_tpu_torch.pipeline import VisualOdometry, frame_step, make_process_frame
-from lcvo_tpu_torch.utils import graphs
+from lcvo_tpu_torch.pipeline import (VisualOdometry, frame_step, make_process_frame,
+                                     uniforms_fn)
+from lcvo_tpu_torch.utils import graphs, jax_random
 
 SMALL = {
     "image_width": 320, "image_height": 128,
@@ -40,14 +41,14 @@ class StandIn:
     """The CPU tests' stand-in for the CUDA capture (see the module docstring)."""
 
     def __init__(self):
-        self.captured = []          # generator states seen at each capture
+        self.captured = []          # the captured bodies
         self.replays = 0
 
     def warmup(self, run):
         run()
 
-    def capture(self, body, generators):
-        self.captured.append([g.get_state() for g in generators])
+    def capture(self, body):
+        self.captured.append(body)
         return [body, body(), True], {}
 
     def replay(self, handle):
@@ -110,12 +111,17 @@ def _equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+def _draws(cfg, n):
+    """The uniforms of ``n`` step keys from ``cfg.seed``'s chain: (n, n_hyp, 3)."""
+    keys = jax_random.split(jax_random.PRNGKey(cfg.seed), n)
+    return uniforms_fn(cfg.ransac.pnp_hypotheses, "cpu")(keys)
+
+
 def _eager_steps(cfg, K, state, frames, n):
     process = frame_step(make_process_frame(cfg, K, "cpu"))
-    gen = torch.Generator().manual_seed(cfg.seed)
     out = []
-    for f in frames[5:5 + n]:
-        state, res = process(state, torch.from_numpy(f), gen)
+    for f, u in zip(frames[5:5 + n], _draws(cfg, n)):
+        state, res = process(state, torch.from_numpy(f), u)
         out.append((_clone(state), res))
     return out
 
@@ -127,7 +133,7 @@ def test_donated_state_is_the_buffers_and_equals_eager(seq, frames, booted):
     equal the eager step bit for bit."""
     cfg, boot = booted
     want = _eager_steps(cfg, seq.K, _clone(boot), frames, 8)
-    gen = torch.Generator().manual_seed(cfg.seed)
+    draws = _draws(cfg, 8)
     standin = StandIn()
     step = graphs.compile_step(frame_step(make_process_frame(cfg, seq.K, "cpu")),
                                donate=True, capture=standin)
@@ -135,7 +141,7 @@ def test_donated_state_is_the_buffers_and_equals_eager(seq, frames, booted):
     buffers = _leaves(state)
     for i, (want_state, want_res) in enumerate(want):
         R_before, t_before = state.R.clone(), state.t.clone()
-        state, res = step(state, torch.from_numpy(frames[5 + i]), gen)
+        state, res = step(state, torch.from_numpy(frames[5 + i]), draws[i])
         assert all(a is b for a, b in zip(_leaves(state), buffers))
         assert torch.equal(state.prev_R, R_before) and torch.equal(state.prev_t, t_before)
         assert _equal(state, want_state) and _equal(res, want_res)
@@ -147,13 +153,13 @@ def test_undonated_state_stays_valid_and_equals_eager(seq, frames, booted):
     comes back shares no memory with it, and 8 steps equal the eager step bit for bit."""
     cfg, boot = booted
     want = _eager_steps(cfg, seq.K, _clone(boot), frames, 8)
-    gen = torch.Generator().manual_seed(cfg.seed)
+    draws = _draws(cfg, 8)
     step = graphs.compile_step(frame_step(make_process_frame(cfg, seq.K, "cpu")),
                                donate=False, capture=StandIn())
     state = _clone(boot)
     for i, (want_state, want_res) in enumerate(want):
         before = _clone(state)
-        new, res = step(state, torch.from_numpy(frames[5 + i]), gen)
+        new, res = step(state, torch.from_numpy(frames[5 + i]), draws[i])
         assert _equal(state, before)
         ptrs = {x.untyped_storage().data_ptr() for x in _leaves(state)}
         assert not ptrs & {x.untyped_storage().data_ptr() for x in _leaves(new)}
@@ -178,23 +184,23 @@ def test_write_back_reads_every_buffer_before_it_writes_one():
         assert _equal(state, eager) and torch.equal(a, want_a)
 
 
-def test_warmup_leaves_the_generator_as_it_found_it(seq, frames, booted):
-    """The warm-up runs the step on copies and puts the generator's state back: the
-    capture sees the state the caller left, and after the first call the generator is
-    where one eager step leaves it."""
+def test_warmup_leaves_the_draws_as_it_found_them(seq, frames, booted):
+    """The randomness is an input buffer: the warm-up runs the step on copies, so the
+    caller's draws (and state) are as it left them, and every replay reads the draws of
+    its own call: a replay with the first call's draws gives the first call's result."""
     cfg, boot = booted
-    gen = torch.Generator().manual_seed(cfg.seed)
+    draws = _draws(cfg, 2)
+    kept = draws.clone()
     standin = StandIn()
     step = graphs.compile_step(frame_step(make_process_frame(cfg, seq.K, "cpu")),
-                               capture=standin)
-    before = gen.get_state()
-    state = _clone(boot)
-    step(state, torch.from_numpy(frames[5]), gen)
-    assert torch.equal(standin.captured[0][0], before)
-    eager_gen = torch.Generator().manual_seed(cfg.seed)
-    frame_step(make_process_frame(cfg, seq.K, "cpu"))(_clone(boot), torch.from_numpy(frames[5]),
-                                                      eager_gen)
-    assert torch.equal(gen.get_state(), eager_gen.get_state())
+                               donate=False, capture=standin)
+    first = step(_clone(boot), torch.from_numpy(frames[5]), draws[0])
+    assert torch.equal(draws, kept) and len(standin.captured) == 1
+    other = step(_clone(boot), torch.from_numpy(frames[5]), draws[1])
+    again = step(_clone(boot), torch.from_numpy(frames[5]), draws[0])
+    eager = frame_step(make_process_frame(cfg, seq.K, "cpu"))(
+        _clone(boot), torch.from_numpy(frames[5]), draws[0])
+    assert _equal(first, eager) and _equal(again, eager) and not _equal(other, eager)
 
 
 def test_one_capture_per_key():
@@ -258,7 +264,7 @@ def test_capture_failure_names_the_operation():
     class Capturing(StandIn):
         on = False
 
-        def capture(self, body, generators):
+        def capture(self, body):
             self.on = True
             return body(), {}
 
@@ -339,7 +345,9 @@ def _host_loop_run(cfg, seq, frames, standin):
     poses = []
     for c in range(4):
         batch = torch.from_numpy(frames[5 + 4 * c: 9 + 4 * c])
-        carry, (Rs, ts, ok, _) = step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)
+        carry, (Rs, ts, ok, _) = step(vo.chunk_carry(), batch,
+                                      jax_random.split(vo._next_key(), 4),
+                                      frame_idx=vo._frame_idx)
         if c == 2:
             carry = _clone(carry)
         vo.set_chunk_carry(carry, 4)
@@ -434,8 +442,8 @@ def test_streams_chunk_step_graphed_equals_eager(seq, frames, monkeypatch):
                                 lambda fn, **kw: graphs.compile_step(fn, capture=standin, **kw))
         step = ps.make_multistream_chunk_step(cfg, seq.K, device="cpu")
         carry = ps.stack_streams([vo.chunk_carry() for vo in vos])
-        gen = torch.Generator().manual_seed(3)
-        carry, res = step(carry, fr, gen, frame_idx=[0, 1])
+        keys = ps.chunk_keys(ps.stream_keys(3, 2), 6)[1]
+        carry, res = step(carry, fr, keys, frame_idx=[0, 1])
         out[name] = (carry, res)
     assert _equal(out["graphed"], out["eager"])
     assert len(standin.captured) == 2      # the frame step, the keyframe step with a select

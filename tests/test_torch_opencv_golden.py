@@ -13,6 +13,7 @@ cv2 = pytest.importorskip("cv2")
 
 from lcvo_tpu_torch.core import geometry as geo  # noqa: E402
 from lcvo_tpu_torch.ops import epipolar, harris, klt, pnp, pyramid  # noqa: E402
+from lcvo_tpu_torch.utils import jax_random  # noqa: E402
 
 
 def T(a, dtype=torch.float32):
@@ -66,10 +67,9 @@ def _two_view_scene(rng, n=120, noise=0.3, fx=500.0):
     return K, R, t, X, uv1.astype(np.float32), uv2.astype(np.float32)
 
 
-def _gen(seed):
-    g = torch.Generator()
-    g.manual_seed(seed)
-    return g
+def _uniforms(seed, shape):
+    """The uniforms of ``jax.random.PRNGKey(seed)``: a draw of the JAX package's stream."""
+    return torch.from_numpy(jax_random.uniform(jax_random.PRNGKey(seed), shape))
 
 
 def test_essential_pose_matches_opencv(rng):
@@ -81,7 +81,8 @@ def test_essential_pose_matches_opencv(rng):
     x1 = geo.normalize_points(T(uv1), Kt)
     x2 = geo.normalize_points(T(uv2), Kt)
     E, inl, n_inl = epipolar.essential_ransac(
-        _gen(0), x1, x2, torch.ones(len(uv1), dtype=torch.bool), thresh=1.0 / 500, n_hyp=256)
+        _uniforms(0, (256, 8)), x1, x2, torch.ones(len(uv1), dtype=torch.bool),
+        thresh=1.0 / 500, n_hyp=256)
     R_o, t_o, _ = epipolar.recover_pose(E, x1, x2, inl)
     R_o = R_o.numpy()
     t_o = t_o.numpy()
@@ -108,7 +109,8 @@ def test_pnp_matches_opencv(rng):
 
     x_obs = geo.normalize_points(T(uv2c), T(K))
     R_o, t_o, inl_o, n_inl = pnp.pnp_ransac(
-        _gen(1), T(X), x_obs, torch.ones(len(X), dtype=torch.bool), thresh=2.0 / 500, n_hyp=256)
+        _uniforms(1, (256, 3)), T(X), x_obs, torch.ones(len(X), dtype=torch.bool),
+        thresh=2.0 / 500, n_hyp=256)
 
     for Rx, tx in ((R_cv, tvec.reshape(-1)), (R_o.numpy(), t_o.numpy())):
         ang = np.degrees(np.arccos(np.clip((np.trace(Rx @ R_gt.T) - 1) / 2, -1, 1)))

@@ -22,8 +22,10 @@ from lcvo_tpu_torch.config import load_config
 from lcvo_tpu_torch.core.state import make_vo_state, state_from_numpy
 from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.metrics import ate_rmse
+from lcvo_tpu_torch.ops.ransac import sample_minimal_sets as port_sample
 from lcvo_tpu_torch.pipeline import (VisualOdometry, make_bootstrap_fns, make_chunk_fn,
-                                     make_process_frame)
+                                     make_process_frame, uniforms_fn)
+from lcvo_tpu_torch.utils import jax_random
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,6 +63,23 @@ def frames(seq):
     return np.stack([seq.frame(i) for i in range(40)])
 
 
+def chunked_keys(seed: int, n_frames: int, gap: int, chunk: int) -> list:
+    """The step keys ``run_chunked`` takes from ``PRNGKey(seed)``'s chain over
+    ``n_frames`` frames with no re-bootstrap, in order: the bootstrap's, each chunk's
+    ``split(k, chunk)``, then one per tail frame. Handed out by ``_next_key``, they make
+    the per-frame loop draw what the chunked loop draws."""
+    key, k = jax_random.split(jax_random.PRNGKey(seed))
+    out = [k]
+    left = n_frames - gap - 1
+    for _ in range(left // chunk):
+        key, k = jax_random.split(key)
+        out.extend(jax_random.split(k, chunk))
+    for _ in range(left % chunk):
+        key, k = jax_random.split(key)
+        out.append(k)
+    return out
+
+
 def test_synthetic_frames_match_jax_package(frames):
     """The port's copy of the renderer gives the JAX package's frames exactly."""
     js = JSyntheticSequence(n_frames=40, width=320, height=128, speed=0.3)
@@ -90,7 +109,11 @@ def test_process_frame_step_parity(seq, frames):
         used["valid"] = valid.numpy().copy()
         idx = jransac.sample_minimal_sets(k_pnp, valid.shape[0], jnp.asarray(used["valid"]),
                                           n_hyp, 3)
-        return torch.from_numpy(np.array(idx)).long()
+        idx = torch.from_numpy(np.array(idx)).long()
+        # the port's own draw from the step's key is the JAX package's, exactly
+        u = uniforms_fn(n_hyp, "cpu")(np.asarray(key)[None])[0]
+        assert torch.equal(port_sample(u, valid.shape[0], valid.bool()), idx)
+        return idx
 
     img = frames[gap + 1]
     jstate, jres = jvo._process(jvo.state, jnp.asarray(img), key)
@@ -206,7 +229,8 @@ def test_make_chunk_step_equals_run_chunked(seq, frames, ba):
     step = vo.make_chunk_step(chunk)
     for c in range(2):
         batch = torch.from_numpy(frames[gap + 1 + c * chunk: gap + 1 + (c + 1) * chunk])
-        carry, (Rs, ts, ok, _) = step(vo.chunk_carry(), batch, vo._gen, frame_idx=vo._frame_idx)
+        keys = jax_random.split(vo._next_key(), chunk)
+        carry, (Rs, ts, ok, _) = step(vo.chunk_carry(), batch, keys, frame_idx=vo._frame_idx)
         vo.set_chunk_carry(carry, chunk)
         np.testing.assert_array_equal(Rs.numpy(), want[c][0])
         np.testing.assert_array_equal(ts.numpy(), want[c][1])

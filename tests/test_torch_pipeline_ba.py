@@ -25,8 +25,11 @@ from lcvo_tpu_torch.config import load_config
 from lcvo_tpu_torch.core.state import state_from_numpy, window_from_numpy
 from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.metrics import ate_rmse
+from lcvo_tpu_torch.ops.ransac import sample_minimal_sets as port_sample
 from lcvo_tpu_torch.pipeline import (VisualOdometry, keyframes_in, make_ba_step, make_chunk_fn,
-                                     make_process_frame)
+                                     make_process_frame, uniforms_fn)
+from lcvo_tpu_torch.utils import jax_random
+from test_torch_pipeline import chunked_keys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -92,7 +95,11 @@ def test_ba_keyframe_step_parity(seq, frames):
     def jax_samples(valid):
         idx = jransac.sample_minimal_sets(k_pnp, valid.shape[0], jnp.asarray(valid.numpy()),
                                           jcfg.ransac.pnp_hypotheses, 3)
-        return torch.from_numpy(np.array(idx)).long()
+        idx = torch.from_numpy(np.array(idx)).long()
+        # the port's own draw from the step's key is the JAX package's, exactly
+        u = uniforms_fn(jcfg.ransac.pnp_hypotheses, "cpu")(np.asarray(key)[None])[0]
+        assert torch.equal(port_sample(u, valid.shape[0], valid.bool()), idx)
+        return idx
 
     img = frames[gap + 6]
     jvo.state, jres = jvo._process(jvo.state, jnp.asarray(img), key)
@@ -133,8 +140,12 @@ def test_ba_keyframe_step_parity(seq, frames):
 
 @pytest.fixture(scope="module")
 def per_frame_and_chunked(seq, frames):
+    """The per-frame loop fed the chunked loop's keys (the JAX package's loops split
+    the chain otherwise), and the chunked loop."""
     cfg = small(ba=BA)
     vo_a = VisualOdometry(cfg, seq.K, device="cpu")
+    keys = iter(chunked_keys(cfg.seed, 40, cfg.bootstrap.frame_gap, 8))
+    vo_a._next_key = lambda: next(keys)
     vo_a.run(iter(list(frames[:40])), n_frames=40)
     vo_b = VisualOdometry(cfg, seq.K, device="cpu")
     vo_b.run_chunked(frames[:40], chunk=8)
@@ -144,7 +155,7 @@ def per_frame_and_chunked(seq, frames):
 def test_chunked_ba_matches_per_frame(per_frame_and_chunked):
     """BA inside the chunked loop gives the trajectory of the per-frame loop on the
     same cadence: median distance < 0.1 m as tests/test_pipeline.py asks, and here,
-    with one generator drawn from in the same order, the same to 1e-6."""
+    with the per-frame loop fed the chunked loop's keys, the same to 1e-6."""
     vo_a, vo_b = per_frame_and_chunked
     est_a, est_b = np.asarray(vo_a.trajectory), np.asarray(vo_b.trajectory)
     assert len(est_a) == len(est_b) == 36
@@ -244,10 +255,9 @@ def test_chunk_fn_reads_frame_idx_when_not_given(seq, frames):
     refines = []
     chunk_fn = make_chunk_fn(cfg, seq.K, "cpu", on_refine=refines.append)
     batch = torch.from_numpy(frames[6:11].copy())
-    gen_state = vo._gen.get_state()
-    (s1, w1), outs1 = chunk_fn(vo.chunk_carry(), batch, vo._gen, frame_idx=1)
-    vo._gen.set_state(gen_state)
-    (s2, w2), outs2 = chunk_fn(vo.chunk_carry(), batch, vo._gen)
+    keys = jax_random.split(vo._next_key(), 5)
+    (s1, w1), outs1 = chunk_fn(vo.chunk_carry(), batch, keys, frame_idx=1)
+    (s2, w2), outs2 = chunk_fn(vo.chunk_carry(), batch, keys)
     assert len(refines) == 4 and all(float(r.cost) <= float(r.cost0) for r in refines)
     for a, b in zip(outs1 + tuple(w1) + (s1.R, s1.t, s1.tracks.X),
                     outs2 + tuple(w2) + (s2.R, s2.t, s2.tracks.X)):
@@ -271,7 +281,8 @@ def test_chunk_carry_without_ba_is_the_state(seq, frames):
     assert vo.window is None and vo.chunk_carry() is vo.state
     assert vo.ba_refine_stats() == (0, 0)
     state, _ = make_chunk_fn(cfg, seq.K, "cpu")(vo.chunk_carry(), torch.from_numpy(frames[5:7].copy()),
-                                               vo._gen, frame_idx=0)
+                                               jax_random.split(vo._next_key(), 2),
+                                               frame_idx=0)
     vo.set_chunk_carry(state, 2)
     assert vo._frame_idx == int(vo.state.frame_idx) == 2 and vo.n_keyframes == 0
 

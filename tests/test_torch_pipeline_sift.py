@@ -22,7 +22,9 @@ from lcvo_tpu_torch.config import load_config
 from lcvo_tpu_torch.core.state import make_vo_state, state_from_numpy
 from lcvo_tpu_torch.data.synthetic import SyntheticSequence
 from lcvo_tpu_torch.metrics import ate_rmse
-from lcvo_tpu_torch.pipeline import VisualOdometry, make_process_frame
+from lcvo_tpu_torch.ops.ransac import sample_minimal_sets as port_sample
+from lcvo_tpu_torch.pipeline import VisualOdometry, make_process_frame, uniforms_fn
+from test_torch_pipeline import chunked_keys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE_YAML = os.path.join(ROOT, "configs", "reference.yaml")
@@ -101,7 +103,11 @@ def test_process_frame_step_parity_sift_modes(seq, frames, mode):
     def jax_samples(valid):
         idx = jransac.sample_minimal_sets(k_pnp, valid.shape[0], jnp.asarray(valid.numpy()),
                                           jcfg.ransac.pnp_hypotheses, 3)
-        return torch.from_numpy(np.array(idx)).long()
+        idx = torch.from_numpy(np.array(idx)).long()
+        # the port's own draw from the step's key is the JAX package's, exactly
+        u = uniforms_fn(jcfg.ransac.pnp_hypotheses, "cpu")(np.asarray(key)[None])[0]
+        assert torch.equal(port_sample(u, valid.shape[0], valid.bool()), idx)
+        return idx
 
     img = frames[gap + 1]
     jstate, jres = jvo._process(jvo.state, jnp.asarray(img), key)
@@ -191,10 +197,12 @@ def test_sift_bootstrap(seq, frames, solver):
 
 
 def test_run_and_run_chunked_agree_in_sift_sift_mode(seq, frames):
-    """The per-frame loop and the chunked loop draw from the generator in the same
-    order, so from one seed they give the same trajectory."""
+    """The per-frame loop fed the chunked loop's keys (the JAX package's loops split the
+    chain otherwise) gives the chunked loop's trajectory."""
     cfg = small(find_new_candidates_method="sift-sift", descriptor={"max_keypoints": 192})
     a = VisualOdometry(cfg, seq.K, device="cpu")
+    keys = iter(chunked_keys(cfg.seed, 17, cfg.bootstrap.frame_gap, 5))
+    a._next_key = lambda: next(keys)
     a.run(iter(frames[:17]), n_frames=17)
     b = VisualOdometry(cfg, seq.K, device="cpu")
     rows = []

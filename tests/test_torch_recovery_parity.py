@@ -4,8 +4,9 @@ run ``run_chunked`` and ``run`` at the small size of ``tests/test_torch_pipeline
 
 Equal: the number of poses, ``n_rebootstraps``, the trajectory index of the pose each
 re-bootstrap anchors at, which entries hold that anchor pose, and ``pose_ok`` there.
-Each package's ATE stays under the JAX fault-injection tests' bound (1.0 m). The random
-streams do not cross packages (RANSAC draws differ), so nothing else is compared.
+Each package's ATE stays under the JAX fault-injection tests' bound (1.0 m). Both
+packages draw the same RANSAC samples from one seed; ``tests/test_torch_lockstep_recovery.py``
+holds the poses of such a run to each other.
 """
 
 import numpy as np

@@ -183,7 +183,8 @@ def test_batched_step_matches_jax_multistream_step(seq, frames, plain_streams):
     """Stream s of the port's batched step against the JAX package's
     ``make_multistream_step`` (no mesh) on the same batched state and images, the port
     fed the JAX samples of each stream's key: R, t <= 1e-3, pose_ok equal, inlier
-    counts within 1%."""
+    counts within 1%; fed the keys themselves, the port's step equals the injected one
+    exactly."""
     cfg, vos = plain_streams
     jcfg = jload_config(overrides={**SMALL, "runtime": {"donate_state": False}})
     S = len(vos)
@@ -208,8 +209,12 @@ def test_batched_step_matches_jax_multistream_step(seq, frames, plain_streams):
             return idx[-1]
 
         pf(vos[s].state, imgs[s], None, pnp_sampler=jax_samples)
-    _, res, agg = ps.make_multistream_step(cfg, seq.K, device="cpu")(states, imgs,
-                                                                      torch.stack(idx))
+    step = ps.make_multistream_step(cfg, seq.K, device="cpu")
+    _, res, agg = step(states, imgs, torch.stack(idx))
+    # the streams' keys themselves: the port draws the JAX samples, so the same step
+    _, res_k, _ = step(states, imgs, np.asarray(keys))
+    for f in res._fields:
+        assert torch.equal(getattr(res_k, f), getattr(res, f)), f
     np.testing.assert_allclose(res.R.numpy(), np.asarray(jres.R), atol=1e-3)
     np.testing.assert_allclose(res.t.numpy(), np.asarray(jres.t), atol=1e-3)
     np.testing.assert_array_equal(res.pose_ok.numpy(), np.asarray(jres.pose_ok))
@@ -230,7 +235,7 @@ def rank_results(tmp_path_factory, seq, frames, ba_streams, plain_streams):
     """Two gloo ranks (``tests/torch_rank_programs.py:streams``), each given the whole
     batch of 4 streams and taking its part of 2: the BA chunk step over a mesh of the
     world (the streams at frame_idx 0, 1, 0, 1 with injected samples), and the step with
-    the mesh from ``runtime.mesh_shape: [2]`` (injected samples, then a generator).
+    the mesh from ``runtime.mesh_shape: [2]`` (injected samples, then the streams' keys).
     Returns the inputs and each rank's results."""
     cfg, vos = ba_streams
     chunk = 3
@@ -296,7 +301,7 @@ def test_mesh_from_config_drives_multistream_step(seq, rank_results):
     gloo ranks the step runs that rank's part of 2 of the 4 streams and gives what the
     step without a mesh gives for them over all 4 (to the step's tolerance: a part of 2
     streams is a batch of another size); ``agg`` holds the sums over all 4 streams on
-    both ranks. The generator path steps every stream of the part."""
+    both ranks. The keys path steps every stream of the part."""
     inputs, ranks = rank_results
     s = inputs["step"]
     _, res0, _ = ps.make_multistream_step(load_config(overrides=SMALL), seq.K, device="cpu")(
@@ -310,8 +315,8 @@ def test_mesh_from_config_drives_multistream_step(seq, rank_results):
         assert int(got["step/agg/inliers"]) == int(res0.n_inliers.sum())
         assert int(got["step/agg/promoted"]) == int(res0.n_promoted.sum())
         assert int(got["step/agg/pose_ok"]) == int(res0.pose_ok.sum())
-        assert got["gen/R"].shape == (2, 3, 3) and np.isfinite(got["gen/t"]).all()
-        np.testing.assert_array_equal(got["gen/frame_idx"], got["gen/frame_idx_in"] + 1)
+        assert got["keys/R"].shape == (2, 3, 3) and np.isfinite(got["keys/t"]).all()
+        np.testing.assert_array_equal(got["keys/frame_idx"], got["keys/frame_idx_in"] + 1)
 
 
 def test_make_mesh_raises_without_a_group():
@@ -357,7 +362,7 @@ def test_batched_chunk_ops_do_not_grow_with_streams(seq, frames, ba_streams):
         carry = ps.stack_streams([vo.chunk_carry() for vo in sub])
         fr = _next_frames(sub, frames, 2)
         with _Ops() as ops:
-            step(carry, fr, torch.Generator().manual_seed(0), frame_idx=0)
+            step(carry, fr, ps.chunk_keys(ps.stream_keys(0, S), 2)[1], frame_idx=0)
         counts[S] = ops.count
     layout = {"aten.view", "aten._unsafe_view", "aten.clone", "aten.lift_fresh",
               "aten.expand", "aten.alias"}

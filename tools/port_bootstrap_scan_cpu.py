@@ -8,8 +8,10 @@ its essential-matrix inlier count.
 
 Detection and tracking are deterministic, so only the RANSAC draws change from seed to
 seed. A bootstrap whose translation is off by more than ``--fail-deg`` degrees picks a
-wrong motion, and tracking collapses right after it. The two packages draw from
-different random streams, so the scan compares how often each fails, not which seeds.
+wrong motion, and tracking collapses right after it. Both packages draw the JAX
+package's random stream, so a seed gives both the same samples: the scan compares seed
+by seed (a seed that fails in one package and not in the other is a rounding flip of the
+MSAC winner, not another draw).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def main() -> None:
     from lcvo_tpu.config import load_config as jload_config
     from lcvo_tpu.pipeline import VisualOdometry as JVO
     from lcvo_tpu_torch.config import load_config
+    from lcvo_tpu_torch.utils import jax_random
     from lcvo_tpu_torch.data.synthetic import SyntheticSequence
     from lcvo_tpu_torch.pipeline import VisualOdometry as TVO
 
@@ -63,7 +66,7 @@ def main() -> None:
     for s in range(args.seeds):
         jvo._key = jax.random.PRNGKey(s)
         j_inl = jvo.bootstrap(frames)
-        tvo._gen.manual_seed(s)
+        tvo._key = jax_random.PRNGKey(s)
         t_inl = tvo.bootstrap(frames)
         row = {"seed": s,
                "jax": {"deg": _angle_deg(jvo.state.R, jvo.state.t, d_gt), "inliers": int(j_inl)},

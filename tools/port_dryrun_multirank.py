@@ -78,14 +78,13 @@ def rank_main(dev, argv) -> None:
     S = STREAMS_PER_RANK * world
     K = make_intrinsics(W, H)
     rng = np.random.default_rng(0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(rank)
 
     cfg = load_config(overrides=SMALL)
     states = _seed_tracks(ps.make_batched_state(cfg, (H, W), S, dev), rng, dev)
     images = torch.from_numpy(rng.uniform(0, 255, (S, H, W)).astype(np.float32)).to(dev)
     step = ps.make_multistream_step(cfg, K, mesh=mesh, device=dev)
-    part, res, agg = step(shard_batched_state(states, mesh), shard_batched_state(images, mesh), gen)
+    keys = ps.stream_keys(rank, S)[rank * STREAMS_PER_RANK:(rank + 1) * STREAMS_PER_RANK]
+    part, res, agg = step(shard_batched_state(states, mesh), shard_batched_state(images, mesh), keys)
     if res.R.shape != (STREAMS_PER_RANK, 3, 3) or agg["tracked"].shape != ():
         raise AssertionError(f"rank {rank}: a part of {tuple(res.R.shape)}, agg {agg}")
     fleet = gather_batched_state(res, mesh)
@@ -97,8 +96,10 @@ def rank_main(dev, argv) -> None:
     carry = (_seed_tracks(st_ba, rng, dev), windows)
     frames = torch.from_numpy(rng.uniform(0, 255, (S, CHUNK, H, W)).astype(np.float32)).to(dev)
     chunk_step = ps.make_multistream_chunk_step(cfg_ba, K, mesh=mesh, device=dev)
-    carry, (Rs, ts, _, _) = chunk_step(shard_batched_state(carry, mesh),
-                                       shard_batched_state(frames, mesh), gen, frame_idx=0)
+    chunk_keys = ps.chunk_keys(ps.stream_keys(rank, S), CHUNK)[1]
+    carry, (Rs, ts, _, _) = chunk_step(
+        shard_batched_state(carry, mesh), shard_batched_state(frames, mesh),
+        chunk_keys[rank * STREAMS_PER_RANK:(rank + 1) * STREAMS_PER_RANK], frame_idx=0)
     if Rs.shape != (STREAMS_PER_RANK, CHUNK, 3, 3) or int(carry[1].head[0]) != 1:
         raise AssertionError(f"rank {rank}: chunk step gave R {tuple(Rs.shape)}, "
                              f"ring head {carry[1].head.tolist()}")

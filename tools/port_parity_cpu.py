@@ -21,10 +21,14 @@ fault-injection scenario; each side then also reports the trajectory indices who
 is not ok. ``--scene turn|textureless|arena`` takes the frames of one of
 ``tests/test_stress.py``'s sequences instead of the corridor. ``--packages jax`` runs one
 side only.
-The random streams
-differ (JAX PRNG vs a torch.Generator), so the trajectories agree to a tolerance, not
-bit for bit; ``traj_distance_m`` is unaligned, so it includes the monocular scale each
-run fixes at bootstrap. With a BA configuration (``configs/throughput.yaml``,
+Both draw the JAX
+package's random stream from ``--seed``, so they take the same RANSAC samples and the
+port retraces the JAX trajectory up to rounding: ``lockstep`` is
+``lcvo_tpu_torch.metrics.lockstep`` of the port's run against the JAX package's (the
+per-entry camera-center distance unaligned, as both fix the scale at the same bootstrap,
+and after Sim(3); the shares of equal pose_ok and inlier counts; the first entry where
+they part), what ``chip_smoke.py``'s ``[lockstep:*]`` lines read on the card.
+``traj_distance_m`` is its unaligned distance. With a BA configuration (``configs/throughput.yaml``,
 ``configs/turn_robust.yaml``) each side also reports how many slots of its keyframe ring
 are filled and where its head stands. One run at 1240x376 takes a few minutes on the CPU.
 """
@@ -126,16 +130,20 @@ def main() -> None:
            "per_frame": args.per_frame, "scene": args.scene, "device": "cpu"}
     makers = {"jax": lambda: JVO(jload_config(args.config, overrides=over), seq.K),
               "torch": lambda: TVO(load_config(args.config, overrides=over), seq.K, device="cpu")}
-    trajs = {}
+    trajs, runs = {}, {}
     for name in args.packages:
         vo = makers[name]()
+        ninl: list[int] = []
         t0 = time.perf_counter()
         if args.per_frame:
-            traj = np.asarray(vo.run(iter(frames), len(frames)))
+            traj = np.asarray(vo.run(iter(frames), len(frames), on_frame=lambda i, r: ninl.append(
+                int(np.asarray(r.n_inliers)))))
         else:
-            traj = np.asarray(vo.run_chunked(frames, chunk=args.chunk))
+            traj = np.asarray(vo.run_chunked(frames, chunk=args.chunk, on_chunk=lambda s, R, t, ok, n:
+                                             ninl.extend(int(x) for x in n)))
         gap = vo.cfg.bootstrap.frame_gap
         trajs[name] = traj
+        runs[name] = (traj, list(vo.pose_ok_flags), ninl)
         out[name] = {
             "ate_m": ate_rmse(traj, seq.gt_positions()[gap: gap + len(traj)]),
             "pose_ok_rate": float(np.mean(vo.pose_ok_flags)),
@@ -149,8 +157,11 @@ def main() -> None:
             out[name]["keyframes_in_ring"] = int(np.asarray(vo.window.kf_valid).sum())
             out[name]["ring_head"] = int(vo.window.head)
     if len(trajs) == 2 and trajs["jax"].shape == trajs["torch"].shape:
+        from lcvo_tpu_torch.metrics import lockstep
+
         d = np.linalg.norm(trajs["jax"] - trajs["torch"], axis=1)
         out["traj_distance_m"] = {"median": float(np.median(d)), "max": float(np.max(d))}
+        out["lockstep"] = lockstep(*runs["torch"], *runs["jax"])
     print(json.dumps(out))
 
 

@@ -11,8 +11,9 @@ For each seed the YAML is copied with ``seed: <k>`` and the package's CLI replay
 ``chip_smoke.py``'s replay phase) in a process of its own: the port's
 ``lcvo_tpu_torch.cli.run.summarise_only`` on ``--device``, or the JAX package's
 ``lcvo_tpu.cli.run.main`` on the CPU. ``--jobs`` runs that many seeds at once. Prints,
-and writes to ``--out``, one JSON object: each seed's ATE, KITTI t-err, re-bootstraps
-and seconds, and the minimum, median and maximum of the first two.
+and writes to ``--out``, one JSON object: each seed's ATE, KITTI t-err, re-bootstraps,
+per-segment scale range (min, max, worst) and seconds, and the minimum, median and
+maximum of the first two.
 
 Files for it: ``python tools/port_make_replay_dataset.py --dataset kitti-turn --frames
 400 --out DIR --device cpu``.
@@ -38,7 +39,8 @@ RUNNERS = {
     "jax": "import sys, jax; jax.config.update('jax_platforms', 'cpu'); "
            "from lcvo_tpu.cli.run import main; main(sys.argv[1:])",
 }
-KEYS = ("ate_rmse_m", "kitti_t_err_pct", "n_rebootstraps", "frames", "pose_ok_rate")
+KEYS = ("ate_rmse_m", "kitti_t_err_pct", "n_rebootstraps", "frames", "pose_ok_rate",
+        "seg_scale_min", "seg_scale_max", "seg_scale_worst", "n_segments")
 
 
 def run_seed(package: str, config: str, seed: int, data_root: str, work: str,

@@ -180,7 +180,7 @@ def main() -> int:
     from lcvo_tpu_torch.config import load_config
     from lcvo_tpu_torch.data.synthetic import SyntheticSequence
     from lcvo_tpu_torch.parallel import streams as ps
-    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.pipeline import VisualOdometry, uniforms_fn
     from lcvo_tpu_torch.utils.graphs import disable_graphs
 
     dev = torch.device(args.device)
@@ -198,11 +198,9 @@ def main() -> int:
     vo = VisualOdometry(cfg, seq.K, device=dev)
     vo.bootstrap(list(frames[: gap + 1]))
     images = torch.from_numpy(frames[gap + 1:]).to(dev)            # stream k: frame gap+1+k
-    g = torch.Generator(device=dev)
-    g.manual_seed(7)
+    # every stream draws what stream 0 draws: one key's uniforms, repeated
     n_hyp = cfg.ransac.pnp_hypotheses
-    samples = torch.multinomial(vo.state.tracks.valid.float(), n_hyp * 3, replacement=True,
-                                generator=g).reshape(1, n_hyp, 3).expand(S, -1, -1).contiguous()
+    samples = uniforms_fn(n_hyp, dev)(ps.stream_keys(7, 1)).expand(S, -1, -1).contiguous()
     step = ps.make_multistream_step(cfg, seq.K, device=dev)
     Record = _recorder()
 
