@@ -203,7 +203,21 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    reference's (the replays' files are written on the card, the reference's on the
    CPU). A missing file or path fails; a bound of ``LOCKSTEP_BOUNDS`` missed fails the
    script once every phase has run.
-18. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
+18. Windows from the JAX package's states (``[segments:<path>]``: the 400-frame replay's
+   turn at three chunk boundaries after its bootstrap, the full-width sharp turn and arena
+   corner with one window before the loss of track and one across it, shi-mask+ba once):
+   one host loop on the card resumes each window's state from
+   ``lcvo_tpu_torch/data/jax_segments/<path>/`` (``tools/port_jax_reference.py
+   --segments``; the image leaves rebuilt from the frame before) and runs the window with
+   the JAX package's draws (``lcvo_tpu_torch/utils/segments.py``), on the frames that the
+   path's own phase ran. Per window: the
+   unaligned camera-center distance to the JAX package's continuation (largest, at the
+   end, at the first entry), pose_ok equal, the first frame where they part. pose_ok is
+   held equal on every window that keeps track, the distance under ``SEGMENT_BOUNDS``;
+   the replay's second window run again in a fresh host loop gives the same entries bit
+   for bit. A missing state file fails; a bound missed fails the script once every phase
+   has run. The launches count under ``segments_<path>``.
+19. Output: ``[launch-floors]``, each path's lower limit on its launches (worked out
    from its configuration and re-bootstrap count, each path checked against it); the
    kernel table as one JSON line (the 2-D entry, whose ``launches_by_path`` holds every
    single-stream path above, the layered entry, and the SVD route with its launches on
@@ -365,6 +379,35 @@ LOCKSTEP_BOUNDS = {
 }
 _lockstep_ref: dict = {}
 _lockstep_faults: list = []
+
+# [segments:<path>]: windows of four paths, each started from the JAX package's own state
+# at its start, so no divergence carries into a window: the states (stripped of their
+# image leaves, which the port rebuilds from the frame before; host lists cut) and the
+# JAX package's continuation of each window in lcvo_tpu_torch/data/jax_segments/<path>/
+# (tools/port_jax_reference.py --segments; no JAX here), resumed and run by
+# lcvo_tpu_torch/utils/segments.py on the frames, configuration and K of the phase that
+# ran the path (kept in _segment_inputs). One host loop resumes window after window;
+# one window again in a fresh loop must give the same entries bit for bit. Bounds per
+# path: (largest unaligned camera-center distance in a window that keeps track, in one
+# that crosses a loss of track), about twice the larger of the H100's reading and the
+# port's on the CPU (window by window: 0.0357 / 0.0280 / 0.1304 m and 0.090 / 0.062 /
+# 0.085 m on the replay, whose whole run reads 0.735 m; sharp turn 0.0045 / 0.0167 and
+# 0.0040 / 0.0286 m, whole 3.6 m; arena corner 0.0042 / 1.764 and 0.0006 / 2.305 m,
+# whole 6.4 m; shi-mask+ba 0.0082 and 0.029 m, whole 0.0865 m); pose_ok is held equal on
+# every entry of a window that keeps track.
+SEGMENT_BOUNDS = {
+    "replay:kitti_turn": (0.26, None), "stress:sharp_turn": (0.01, 0.06),
+    "stress:arena_corner": (0.01, 4.6), "shi-mask+ba": (0.06, None),
+}
+SEGMENT_FRESH = "replay:kitti_turn"       # the path whose second window runs again fresh
+_segment_faults: list = []
+_segment_inputs: dict = {}                # path: (configuration, K, uint8 frames)
+
+
+def _keep_segment_inputs(path: str, cfg, K, frames) -> None:
+    """What a path's own phase ran, for its ``[segments:<path>]`` windows."""
+    if path in SEGMENT_BOUNDS:
+        _segment_inputs[path] = (cfg, K, frames)
 
 
 def frames_sha256(frames) -> str:
@@ -1935,7 +1978,9 @@ def stress_phase(cfg) -> dict:
         c = load_config(overrides={"image_width": W, "image_height": H})
         turn = SyntheticSequence(n_frames=n, width=W, height=H, trajectory=trajectory_turn(
             n, speed=0.3, turn_start=20, turn_frames=15, turn_deg=60))
-        out = _stress_run(tag, c, turn.K, render(turn, n), turn.gt_positions(), bound, max_reb)
+        fr = render(turn, n)
+        out = _stress_run(tag, c, turn.K, fr, turn.gt_positions(), bound, max_reb)
+        _keep_segment_inputs(f"stress:{tag}", c, turn.K, fr)
         if out["health_end"] != 0:
             out["faults"].append(f"{tag}: health {out['health_end']} at the end")
         faults += out["faults"]
@@ -1955,8 +2000,9 @@ def stress_phase(cfg) -> dict:
         c = load_config(overrides={"image_width": W, "image_height": H})
         arena = FastArenaRenderer(trajectory_loop(m, speed=0.3, straight_frames=25, turn_frames=30),
                                   W, H, margin=6.0, device="cuda")
-        out = _stress_run(tag, c, arena.K, arena.frames_device(0, m).cpu().numpy(),
-                          arena.gt_positions(), bound, max_reb)
+        fr = arena.frames_device(0, m).cpu().numpy()
+        out = _stress_run(tag, c, arena.K, fr, arena.gt_positions(), bound, max_reb)
+        _keep_segment_inputs(f"stress:{tag}", c, arena.K, fr)
         faults += out["faults"]
         by_path["stress_" + tag] = (out["launches"], out["launches_floor"])
     _say(f"[stress] phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -2021,6 +2067,73 @@ def longhorizon_phase(cfg) -> tuple[int, int]:
     if launches < floor:
         raise AssertionError(f"[longhorizon] extract_blocks launched {launches} times, < {floor}")
     return launches, floor
+
+
+def segments_phase() -> dict:
+    """``[segments:<path>]`` for each path of ``SEGMENT_BOUNDS``: one ``VisualOdometry`` on
+    the card resumes every window's JAX state (a missing file raises) and runs the
+    window, the launch counters at 0 before the path and read after; per window the
+    distance to the JAX package's continuation (largest, at the end, at the first entry),
+    pose_ok equal, the first frame where the runs part; ``SEGMENT_FRESH``'s second window
+    again in a fresh host loop, equal bit for bit. A bound missed is kept and raised when
+    every phase has run. Returns each path's launches and their floor."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils import segments as segs
+
+    t_phase = time.perf_counter()
+    counted = {}
+    for path, (bound_kept, bound_lost) in SEGMENT_BOUNDS.items():
+        seg_dir = segs.segments_dir(path)
+        with open(os.path.join(seg_dir, segs.SEGMENTS)) as fh:
+            rec = json.load(fh)
+        c, K, fr = _segment_inputs[path]
+        if c.seed != rec["seed"] or len(fr) != rec["n_frames"]:
+            raise AssertionError(f"[segments:{path}] seed {c.seed} / {len(fr)} frames, the "
+                                 f"states' {rec['seed']} / {rec['n_frames']}")
+        src = segs.array_frames(fr, K)
+        vo = VisualOdometry(c, K, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        runs = [segs.run_port_window(vo, seg_dir, rec, w, src) for w in rec["windows"]]
+        torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["extract_blocks"]
+        n = sum(w["end"] - w["start"] for w in rec["windows"])
+        floor = (_launch_floor(c, 0, 0, extra_hops=n) if rec["loop"] == "run"
+                 else _launch_floor(c, n, 0))
+        fresh = None
+        if path == SEGMENT_FRESH:
+            w = rec["windows"][1]
+            again = segs.run_port_window(VisualOdometry(c, K, device="cuda"), seg_dir, rec, w, src)
+            fresh = all(again[k] == runs[1][k] for k in ("centers", "rotations", "pose_ok",
+                                                           "n_inliers"))
+            if not fresh:
+                _segment_faults.append(f"{path}: window {w['start']} in a fresh host loop is "
+                                       f"not the resumed loop's")
+        out_w = []
+        for w, got in zip(rec["windows"], runs):
+            cmp = segs.compare_window(w["jax"], got, w["start"], w["anchor"]["centers"])
+            lost = not all(w["jax"]["pose_ok"])
+            bound = bound_lost if lost else bound_kept
+            cmp.update(window=[w["start"], w["end"]], crosses_loss_of_track=lost,
+                       bound_distance_m=bound, frames_per_s=(w["end"] - w["start"]) / got["seconds"])
+            out_w.append(cmp)
+            if (bound is None or cmp.get("distance_m_max", np.inf) > bound
+                    or cmp["entries"] != len(w["jax"]["pose_ok"])
+                    or (not lost and cmp["pose_ok_equal_share"] < 1.0)):
+                _segment_faults.append(f"{path} window {w['start']}: {cmp}")
+        out = {"windows": out_w, "launches": launches, "launches_floor": floor,
+               "frames_equal_reference": frames_sha256(fr) == rec["frames_sha256"],
+               "fresh_host_loop_equal": fresh}
+        _say(f"[segments:{path}] " + json.dumps(out))
+        if launches < floor:
+            raise AssertionError(f"[segments:{path}] extract_blocks launched {launches} "
+                                 f"times, < {floor}")
+        counted["segments_" + os.path.basename(seg_dir).replace("-", "_")] = (launches, floor)
+    _say(f"[segments] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return counted
 
 
 def mode_overrides(mode: str) -> dict:
@@ -2271,6 +2384,7 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
     from lcvo_tpu_torch import kernels
     from lcvo_tpu_torch.config import load_config
     from lcvo_tpu_torch.data import native_loader
+    from lcvo_tpu_torch.utils.segments import replay_config
 
     made = port_make_replay_dataset.make_dataset("kitti-turn", frames=REPLAY_FRAMES,
                                                  out=os.path.join(work, "data"), device="cuda")
@@ -2299,6 +2413,9 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
     for i in range(2 * CHUNK):
         ds.frame(i)
     decode_ms = 1e3 * (time.perf_counter() - t0) / (2 * CHUNK)
+    fr = np.stack([ds.frame(i) for i in range(REPLAY_FRAMES)])
+    _keep_segment_inputs(tag, replay_config(cfg_path, TURN_SEED, *fr.shape[1:],
+                                            ds.bootstrap_pair[1]), ds.K, fr)
 
     out_a = os.path.join(work, "run_a")
     native_loader.reset_counts()
@@ -3278,6 +3395,7 @@ def main() -> int:
                      poses["turn_robust"])
     for mode, n_frames, jax_ate in MODES:
         c = load_config(overrides=mode_overrides(mode))
+        _keep_segment_inputs(mode, c, seq.K, frames[:n_frames])
         out, _, _ = main_path_phase(f"main:{mode}", c, seq, frames, LOCKSTEP_ATE_FACTOR * jax_ate,
                                     _launch_floor(c, n_frames - 1 - c.bootstrap.frame_gap, 1),
                                     args.profile, n_frames=n_frames)
@@ -3291,6 +3409,7 @@ def main() -> int:
     floors["replay_kitti_turn"] = replay["launches_formula"]
     for dataset, jax_ate in REPLAY_LAYOUT_JAX_CPU_ATE_M.items():
         counted[f"replay_{dataset}"] = replay_layout_phase(root, dataset, jax_ate)
+    counted.update(segments_phase())
     for path, (n, floor) in counted.items():
         by_path[path], floors[path] = n, floor
     kernels.reset_launches()
@@ -3318,8 +3437,9 @@ def main() -> int:
     srow["launches"] = sum(svd_by_path.values())
     srow["launches_by_path"] = svd_by_path
     skeys = keys[:12] + ("ms_by_site", "library_ms_by_site", "bound_ms_by_site")
-    if _lockstep_faults:
-        raise AssertionError("[lockstep] bounds missed: " + "; ".join(_lockstep_faults))
+    if _lockstep_faults or _segment_faults:
+        raise AssertionError("[lockstep] bounds missed: " + "; ".join(_lockstep_faults)
+                             + " [segments] " + "; ".join(_segment_faults))
     _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
          f"to the kernel line")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys},

@@ -1129,18 +1129,29 @@ class VisualOdometry:
             extras={"n_rebootstraps": self.n_rebootstraps},
         )
 
-    def resume(self, path: str) -> int:
+    def resume(self, path: str, prev_frame=None) -> int:
         """Restore a :meth:`save` checkpoint; returns the absolute frame index to
         continue from (feed ``frames[produced:]`` to :meth:`run_continue` or
         :meth:`run_chunked_continue`). A checkpoint of the JAX package resumes here with
-        the JAX package's next draws: the state, the window and the key chain."""
+        the JAX package's next draws: the state, the window and the key chain.
+
+        A file without its image leaves (``utils/checkpoint.py::strip_checkpoint``)
+        needs ``prev_frame``, the last frame the writer consumed (``frames[produced -
+        1]``): its float32 copy and pyramid are made here, as the step makes them."""
         cfg = self.cfg
         state_tmpl = st.make_vo_state(cfg, (cfg.image_height, cfg.image_width), self.device)
+        rebuild = not ckpt.has_image_leaves(path)
+        if rebuild and prev_frame is None:
+            raise ValueError(f"checkpoint {path} has no image leaves: pass prev_frame, the "
+                             f"last frame its writer consumed")
         state, window, traj, produced, key, poses, flags, extras = ckpt.load_checkpoint(
             path, state_tmpl, self.window)
         if produced is None:
             raise ValueError(f"checkpoint {path} has no frame counter: not a checkpoint of "
                              f"the host loop")
+        if rebuild:
+            image = self._frame(prev_frame).to(torch.float32)
+            state = state._replace(prev_image=image, prev_pyramid=self._pyramid(image))
         if key is not None:
             self._key = key
         self.n_rebootstraps = int(extras.get("n_rebootstraps", 0))

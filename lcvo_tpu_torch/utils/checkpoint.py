@@ -60,6 +60,16 @@ def _flatten(tree) -> dict:
     return {key: _to_numpy(leaf) for key, leaf in _walk(tree)}
 
 
+# The leaves a step can make again from the last frame it consumed (``prev_image`` is
+# that frame as float32, ``prev_pyramid`` its pyramid): most of a full-width file's
+# bytes. ``strip_checkpoint`` leaves them out; ``VisualOdometry.resume(path,
+# prev_frame=)`` rebuilds them.
+IMAGE_LEAVES = ("state:.prev_image", "state:.prev_pyramid/")
+# host-list entries a resumed loop reads back: ``_recent_step_scale`` takes the median of
+# the last 16 steps, 17 camera centers
+HOST_HISTORY = 17
+
+
 def save_checkpoint(path: str, state, window=None, trajectory=None,
                     frame_idx: int | None = None, rng_key=None, poses=None,
                     pose_ok_flags=None, extras: dict | None = None):
@@ -101,13 +111,18 @@ def load_checkpoint(path: str, state_template, window_template=None):
     Templates supply the STRUCTURE, the device and the dtypes (e.g.
     ``make_vo_state(cfg, shape, device)``); leaves are filled from the file and must
     match the template's shapes and dtypes exactly. ``rng`` is the PRNG key, (2,)
-    uint32, or ``None`` for a file without one."""
+    uint32, or ``None`` for a file without one. A file may lack the
+    :data:`IMAGE_LEAVES`, which then keep the template's value (the caller rebuilds
+    them); any other missing leaf raises ``KeyError``."""
     data = np.load(path, allow_pickle=False)
 
     def restore(tree, prefix):
         leaves = []
         for key, leaf in _walk(tree):
             key = prefix + key
+            if key not in data.files and key.startswith(IMAGE_LEAVES):
+                leaves.append(leaf)
+                continue
             arr = data[key]
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape {arr.shape} != template "
@@ -131,3 +146,24 @@ def load_checkpoint(path: str, state_template, window_template=None):
     flags = [bool(f) for f in data["pose_ok_flags"]] if "pose_ok_flags" in data else None
     extras = {k[len("extra:"):]: data[k] for k in data.files if k.startswith("extra:")}
     return state, window, trajectory, frame_idx, rng, poses, flags, extras
+
+
+def has_image_leaves(path: str) -> bool:
+    with np.load(path, allow_pickle=False) as data:
+        return IMAGE_LEAVES[0] in data.files
+
+
+def strip_checkpoint(src: str, dst: str) -> None:
+    """Write ``src`` to ``dst`` without its image leaves and with its host lists
+    (trajectory, poses, pose_ok flags) cut to their last :data:`HOST_HISTORY` entries:
+    what a resumed run reads. A run resumed from ``dst`` numbers its trajectory entries
+    from there."""
+    with np.load(src, allow_pickle=False) as data:
+        payload = {k: data[k] for k in data.files if not k.startswith(IMAGE_LEAVES)}
+    for k in ("trajectory", "poses", "pose_ok_flags"):
+        if k in payload:
+            payload[k] = payload[k][-HOST_HISTORY:]
+    tmp = dst + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(fh, **payload)
+    os.replace(tmp, dst)

@@ -17,8 +17,9 @@ deterministic). A bootstrap with few inliers is a wrong two-view init, and the w
 trajectory inherits it, with BA or without. ``--bootstrap-only N`` runs only the two-view
 bootstrap for seeds 0..N-1 and prints each one's inliers and the angle between its
 translation and the true motion, then how many had fewer than ``--weak`` inliers: how
-often the card draws a weak bootstrap. Needs one CUDA device; about 8 s per run at
-1240x376 and 74 frames, a quarter of a second per bootstrap.
+often the card draws a weak bootstrap. Runs on one CUDA device (``--device cpu`` runs the
+port on the CPU); on the card about 8 s per run at 1240x376 and 74 frames, a quarter of a
+second per bootstrap.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ def main() -> int:
                     help="run only the bootstrap, for seeds 0..N-1")
     ap.add_argument("--weak", type=int, default=500,
                     help="a bootstrap with fewer essential-matrix inliers counts as weak")
+    ap.add_argument("--device", default="cuda", help="cuda, or cpu (slow: for --bootstrap-only)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("port_ba_seed_scan.py: no CUDA device", file=sys.stderr)
         return 2
 
@@ -68,8 +70,9 @@ def main() -> int:
         frames = list(ex.map(seq.frame, range(args.frames)))
     frames = np.clip(np.rint(np.stack(frames)), 0, 255).astype(np.uint8)
     gt = seq.gt_positions()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = "cpu" if args.device == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"device": smi, "config": args.config, "override": over,
                       "frames": args.frames, "chunk": args.chunk}), flush=True)
 
@@ -79,7 +82,7 @@ def main() -> int:
         d_gt = d_gt / np.linalg.norm(d_gt)
         rows = []
         for seed in range(args.bootstrap_only):
-            vo = VisualOdometry(dataclasses.replace(base, seed=seed), seq.K, device="cuda")
+            vo = VisualOdometry(dataclasses.replace(base, seed=seed), seq.K, device=args.device)
             n_inl = vo.bootstrap(list(frames[: gap + 1]))
             R, t = vo.state.R.cpu().numpy().astype(np.float64), vo.state.t.cpu().numpy()
             c = -R.T @ t
@@ -97,7 +100,7 @@ def main() -> int:
         for ba_on in (True, False):
             cfg = dataclasses.replace(base, seed=seed,
                                       ba=dataclasses.replace(base.ba, enabled=ba_on))
-            vo = VisualOdometry(cfg, seq.K, device="cuda")
+            vo = VisualOdometry(cfg, seq.K, device=args.device)
             inliers: list[int] = []
             vo.run_chunked(frames, chunk=args.chunk,
                            on_chunk=lambda s, R, t, ok, ninl: inliers.extend(int(n) for n in ninl))

@@ -5,6 +5,7 @@ own frames, image size, configuration and seed.
 
     python tools/port_jax_reference.py [--paths default reference ...] [--jobs 3]
         [--out lcvo_tpu_torch/data/jax_lockstep.json] [--work runs/jax_reference]
+    python tools/port_jax_reference.py --segments [--paths replay:kitti_turn ...] [--jobs 4]
 
 Since the port draws the JAX package's random stream (``lcvo_tpu_torch/utils/
 jax_random.py``), one seed gives both packages the same RANSAC samples, and a run of the
@@ -16,6 +17,11 @@ solve), the ATE, the re-bootstraps, the SHA-256 of the uint8 frames it ran on an
 command that made the entry. The file is merged: paths not asked for keep their entries.
 Each path runs in a process of its own (``--jobs`` at once); a 1240x376 path takes one to
 a few minutes, the 400-frame replay about ten (its frames are rendered on the CPU first).
+
+With ``--segments`` it writes instead, for ``chip_smoke.py``'s ``[segments:<path>]``, the
+JAX package's states at the window starts of ``SEGMENT_STARTS`` with each window's
+continuation (``tools/port_segment_lockstep.py``), the states stripped of their image
+leaves, into ``lcvo_tpu_torch/data/jax_segments/<path>/``.
 
 Frames: the corridor of ``data/synthetic.py`` at 1240x376 rendered on the host as the
 script renders it (so the card's run sees the same bytes), the stress scenes of
@@ -86,6 +92,18 @@ PATHS = {
                       "cli": ["--frames", "120", "--chunked"]},
     "replay:parking": {"scene": "parking", "frames": 120, "size": (640, 480), "loop": "cli",
                        "cli": ["--frames", "120", "--chunked"]},
+}
+
+
+# ``--segments``: the JAX package's states at window starts on four of these paths, for
+# chip_smoke.py's [segments:<path>] (tools/port_segment_lockstep.py resumes them in the
+# port). Each window starts at a ``produced`` count where the path's loop offers a save
+# (a chunk boundary; a healthy frame of ``run``) and ends where the next starts.
+SEGMENT_STARTS = {
+    "replay:kitti_turn": (103, 199, 295),   # 7 + 96k: six chunks of 16 a window
+    "stress:sharp_turn": (15, 20),          # frames 15-19 tracked; from 20 on, track lost
+    "stress:arena_corner": (13, 25),        # frames 13-24 tracked; from 25 on, track lost
+    "shi-mask+ba": (23,),                   # three chunks of 16 and the three tail frames
 }
 
 
@@ -236,6 +254,48 @@ def run_cli(spec: dict, work: str) -> dict:
             "frames_sha256": frames_sha256(frames), "wall_s": wall}
 
 
+def run_segments(name: str, work: str) -> dict:
+    """The JAX package's run of path ``name`` saving its state at ``SEGMENT_STARTS``;
+    the states stripped (no image leaves, host lists cut) into ``segments_dir(name)``."""
+    import shutil
+
+    import port_make_replay_dataset
+    import port_segment_lockstep as psl
+    from lcvo_tpu.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils import segments as segs
+
+    spec = PATHS[name]
+    if spec["loop"] == "cli":
+        data = os.path.join(work, spec["scene"].replace("-", "_"), "data")
+        port_make_replay_dataset.make_dataset(spec["scene"], frames=spec["frames"], out=data,
+                                              device="cpu")
+        src = segs.dataset_frames(data, "kitti", spec["frames"])
+        frames = np.stack([src.frame(i) for i in range(src.n)])
+        _, cfg = psl.load_configs(spec.get("config"), spec.get("seed", 0), *frames.shape[1:],
+                              src.describe["gap"], True)
+        loop = "chunked"
+    else:
+        frames, K, _ = scene_frames(spec)
+        src = segs.array_frames(frames, K)
+        cfg = _config(spec, spec["size"])
+        loop = spec["loop"]
+    full = os.path.join(work, "segments", name.replace(":", "_"))
+    shutil.rmtree(full, ignore_errors=True)
+    rec = psl.run_jax(VisualOdometry(cfg, src.K), src, loop, full, starts=SEGMENT_STARTS[name])
+    dst = segs.segments_dir(name)
+    shutil.rmtree(dst, ignore_errors=True)
+    size = psl.strip_segments(full, dst, keep_gt=False)
+    with open(os.path.join(dst, segs.SEGMENTS)) as fh:
+        doc = json.load(fh)
+    doc.update(path=name, frames_sha256=frames_sha256(frames),
+               command=f"python tools/port_jax_reference.py --segments --paths {name}")
+    with open(os.path.join(dst, segs.SEGMENTS), "w") as fh:
+        json.dump(doc, fh, separators=(",", ":"))
+    return {"path": name, "windows": [(w["start"], w["end"]) for w in rec["windows"]],
+            "jax_rebootstraps": rec["jax_rebootstraps"], **size,
+            "bytes": sum(os.path.getsize(os.path.join(dst, f)) for f in os.listdir(dst))}
+
+
 def one(name: str, work: str) -> dict:
     import jax
 
@@ -249,23 +309,35 @@ def one(name: str, work: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--paths", nargs="+", default=list(PATHS), choices=list(PATHS))
+    ap.add_argument("--paths", nargs="+", default=None, choices=list(PATHS))
     ap.add_argument("--jobs", type=int, default=1, help="paths run at once, a process each")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--work", default=os.path.join(ROOT, "runs", "jax_reference"),
                     help="where the replays' files and runs go")
+    ap.add_argument("--segments", action="store_true",
+                    help="write the window states of SEGMENT_STARTS' paths (all of them "
+                         "unless --paths) into lcvo_tpu_torch/data/jax_segments/")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     if args.one:
-        print("RESULT " + json.dumps(one(args.one, args.work)), flush=True)
+        if args.segments:
+            import jax
+
+            jax.config.update("jax_platforms", "cpu")
+            print("RESULT " + json.dumps(run_segments(args.one, args.work)), flush=True)
+        else:
+            print("RESULT " + json.dumps(one(args.one, args.work)), flush=True)
         return
+    args.paths = args.paths or list(SEGMENT_STARTS if args.segments else PATHS)
+    if args.segments and set(args.paths) - set(SEGMENT_STARTS):
+        raise SystemExit(f"no segments for {sorted(set(args.paths) - set(SEGMENT_STARTS))}")
 
     def start(name):
         log = open(os.path.join(args.work, f"{name.replace(':', '_')}.log"), "w")
         return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--one", name,
-                                 "--work", args.work], stdout=log, stderr=subprocess.STDOUT,
-                                cwd=ROOT), log
+                                 "--work", args.work] + (["--segments"] if args.segments else []),
+                                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log
 
     os.makedirs(args.work, exist_ok=True)
     todo, running, done = list(args.paths), {}, {}
@@ -284,8 +356,11 @@ def main() -> None:
             if proc.returncode != 0 or not lines:
                 raise SystemExit(f"{name} failed ({proc.returncode}): see {log.name}")
             done[name] = json.loads(lines[-1][len("RESULT "):])
-            print(json.dumps({"path": name, "ate_m": done[name]["ate_m"],
-                              "wall_s": done[name]["wall_s"]}), flush=True)
+            print(json.dumps({"path": name, **{k: done[name][k] for k in
+                                               ("ate_m", "wall_s", "windows", "bytes")
+                                               if k in done[name]}}), flush=True)
+    if args.segments:
+        return
     ref = {"paths": {}}
     if os.path.exists(args.out):
         with open(args.out) as fh:
