@@ -69,9 +69,9 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    with its keyframe steps. After each, the same file with ``ba.enabled`` off runs the
    same frames (``[main:<name>:ba_off]``: frames/s and ATE beside the BA run's).
    With ``--profile DIR``, one more chunk of each path runs under ``torch.profiler``
-   afterwards, eager (stage spans, ``lcvo.ba`` per keyframe, device busy share, top
-   kernels), then one replayed chunk (device busy, idle share, ops per frame); summaries
-   to DIR.
+   afterwards, eager (host stage spans, device busy share, top kernels), then one
+   replayed chunk (device busy, idle share, ops per frame); summaries to DIR. The device
+   time of a replay's stages is the benchmark's reading (``vo_bench``, ``--trace 1``).
    Every path of this script runs as ``VisualOdometry`` runs on the card: its per-frame
    and keyframe steps captured into CUDA graphs at their first call and replayed
    (``lcvo_tpu_torch/utils/graphs.py``), the launch counters counting each replay's
@@ -2505,16 +2505,13 @@ def _replay_checks(root: str, smi: str, work: str, tag: str) -> tuple[dict, int]
 
 def _profile_summary(prof, wall_us: float, n: int):
     """Per-frame figures of a profiled run of ``n`` frames: device busy time and idle
-    share, device ops (kernels and copies), ``lcvo.*`` stage spans, top kernels. Returns
-    the summary and the event lists it was read from."""
+    share, device ops (kernels and copies), ``lcvo.*`` stage spans, top kernels."""
     from torch.autograd import DeviceType
 
     events = prof.events()
-    # device activity: kernels and copies; the lcvo.* stage spans also appear on the
-    # device timeline (as user annotations) and are counted apart
+    # device activity: kernels and copies (the program's spans are host ranges only)
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    kern = [e for e in dev_events if not e.name.startswith("lcvo.")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     busy, cur_s, cur_e = 0.0, None, None
     for s0, e0 in spans:
         if cur_e is None or s0 > cur_e:
@@ -2524,34 +2521,33 @@ def _profile_summary(prof, wall_us: float, n: int):
             cur_e = max(cur_e, e0)
     busy += (cur_e - cur_s) if cur_e is not None else 0.0
     by_kernel: dict = {}
-    for e in kern:
+    for e in dev_events:
         d = by_kernel.setdefault(e.name, [0, 0.0])
         d[0] += 1
         d[1] += e.time_range.elapsed_us()
     stages: dict = {}
     for e in events:
         if e.name.startswith("lcvo."):
-            side = "host" if e.device_type == DeviceType.CPU else "device"
-            d = stages.setdefault(f"{e.name} {side}", [0, 0.0])
+            d = stages.setdefault(f"{e.name} host", [0, 0.0])
             d[0] += 1
             d[1] += e.time_range.elapsed_us()
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
     summary = {
         "frames": n, "wall_ms_per_frame": wall_us / n / 1e3,
         "device_busy_ms_per_frame": busy / n / 1e3, "device_idle_share": 1 - busy / wall_us,
-        "device_ops_per_frame": len(kern) / n,
+        "device_ops_per_frame": len(dev_events) / n,
         "stage_span_ms_per_frame": {k: v[1] / n / 1e3 for k, v in sorted(stages.items())},
         "top_kernels_ms_per_frame": [[k, v[0] / n, v[1] / n / 1e3] for k, v in top],
     }
-    return summary, dev_events, kern, stages
+    return summary
 
 
 def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
     """One more chunk of the main path under ``torch.profiler``, eager
-    (``disable_graphs()``: a replay records no stage spans): host and device span of
-    each ``lcvo.*`` stage, device busy share, launches and the kernels with the most
-    device time. Then one chunk of the replayed graphs: device busy, idle share and
-    device ops per frame (``graphed``). Writes the summary to ``out_dir``. The
+    (``disable_graphs()``: a replay records no stage spans): the host span of each
+    ``lcvo.*`` stage, device busy share, launches and the kernels with the most device
+    time. Then one chunk of the replayed graphs: device busy, idle share and device ops
+    per frame (``graphed``). Writes the summary to ``out_dir``. The
     profiler's own cost inflates the wall time; the shares are what it is for."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2574,7 +2570,7 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
             carry, outs = chunk_fn(carry, batch, keys(), frame_idx=vo._frame_idx + n)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    summary, dev_events, kern, stages = _profile_summary(prof, wall_us, n)
+    summary = _profile_summary(prof, wall_us, n)
     # the graphed chunk, its graphs captured by the run before
     vo.set_chunk_carry(chunk_fn(vo.chunk_carry(), batch, keys(), frame_idx=vo._frame_idx)[0], n)
     torch.cuda.synchronize()
@@ -2584,22 +2580,10 @@ def profile_chunk(vo, frames, out_dir: str, fname: str) -> None:
         torch.cuda.synchronize()
         gwall_us = (time.perf_counter() - t0) * 1e6
     vo.set_chunk_carry(carry, n)
-    graphed, _, _, _ = _profile_summary(gprof, gwall_us, n)
+    graphed = _profile_summary(gprof, gwall_us, n)
     summary["graphed"] = {k: graphed[k] for k in (
         "wall_ms_per_frame", "device_busy_ms_per_frame", "device_idle_share",
         "device_ops_per_frame", "top_kernels_ms_per_frame")}
-    # the keyframe step: host and device span of one lcvo.ba, and the device ops that
-    # start inside its device-side span
-    ba_dev = [(e.time_range.start, e.time_range.end) for e in dev_events if e.name == "lcvo.ba"]
-    if ba_dev:
-        inside = [e for e in kern if any(s0 <= e.time_range.start <= e0 for s0, e0 in ba_dev)]
-        summary["ba_keyframes"] = len(ba_dev)
-        summary["ba_device_busy_ms_per_keyframe"] = (
-            sum(e.time_range.elapsed_us() for e in inside) / len(ba_dev) / 1e3)
-        summary["ba_span_ms_per_keyframe"] = {
-            side: stages[f"lcvo.ba {side}"][1] / stages[f"lcvo.ba {side}"][0] / 1e3
-            for side in ("host", "device") if f"lcvo.ba {side}" in stages}
-        summary["ba_device_ops_per_keyframe"] = len(inside) / len(ba_dev)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, fname), "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -2882,7 +2866,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                         step(carry, nxt, keys, frame_idx=fidx)
                         torch.cuda.synchronize()
                         wall_us = (time.perf_counter() - t0p) * 1e6
-                    summary, _, _, _ = _profile_summary(prof, wall_us, CHUNK)
+                    summary = _profile_summary(prof, wall_us, CHUNK)
                     summary["device_ops_per_frame_per_stream"] = summary["device_ops_per_frame"] / S
                     os.makedirs(profile_dir, exist_ok=True)
                     with open(os.path.join(profile_dir, f"streams_S{S}_{name}.json"), "w") as fh:

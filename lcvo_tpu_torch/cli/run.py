@@ -7,6 +7,13 @@ outputs and the summary's keys and rounding are the reference's. Two differences
 package has it), and no persistent compile cache: eager PyTorch compiles nothing per
 run, so the reference's XLA cache directory has no counterpart here.
 
+``--profile-frames N`` shows where a frame's time goes: ``N`` frames of the run, from
+the ``PROFILE_AFTER``-th pose on (past the first graph captures), run under
+``utils/profiling.trace``, which writes ``trace.json`` under ``--out``: the program's
+spans (``vo.*``, ``graph.*``, ``host.gc``) beside the card's kernels, for Perfetto or
+``chrome://tracing``. ``utils/profiling.STAGES`` names the stage of each kernel of a
+graph replay.
+
 Outputs (under ``--out``): trajectory ``.npz``, per-frame metrics ``.jsonl``,
 trajectory plot ``.png``, ATE/RPE summary printed as one JSON line.
 
@@ -19,9 +26,13 @@ and says so; the command line itself always plots.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
+
+# poses before --profile-frames starts its trace: the first chunks' graph captures
+PROFILE_AFTER = 48
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,7 +57,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stitch dumped dashboard frames into an mp4 at the end")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises where there is none, pass cpu to run there)")
+    p.add_argument("--profile-frames", type=int, default=0, metavar="N",
+                   help="write OUT/trace.json: N frames of the run under torch.profiler, the "
+                        "program's spans beside the kernels (0 = off)")
     return p
+
+
+class ProfiledFrames:
+    """``utils/profiling.trace(out)`` over ``n`` poses of a run, from its
+    ``PROFILE_AFTER``-th pose on (or to the run's end): :meth:`count` is told each pose
+    the run emits."""
+
+    def __init__(self, out: str, n: int):
+        self.out, self.n = out, n
+        self.seen = self.first = 0
+        self.stack = contextlib.ExitStack()
+        self.on = self.done = False
+
+    def count(self, poses: int) -> None:
+        self.seen += poses
+        if self.n > 0 and not (self.on or self.done) and self.seen >= PROFILE_AFTER:
+            from lcvo_tpu_torch.utils import profiling
+
+            self.stack.enter_context(profiling.trace(self.out))
+            self.on, self.first = True, self.seen
+        elif self.on and self.seen - self.first >= self.n:
+            self.close()
+
+    def close(self) -> None:
+        if self.on:
+            self.stack.close()
+            self.on, self.done = False, True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def summary(self) -> dict:
+        """The summary's entries for the trace: its path and the poses it covers."""
+        if not self.done:
+            return {}
+        return {"trace": os.path.join(self.out, "trace.json"),
+                "profiled_frames": min(self.seen - self.first, self.n)}
 
 
 def run_and_summarise(args) -> tuple[dict, dict]:
@@ -89,61 +143,66 @@ def run_and_summarise(args) -> tuple[dict, dict]:
 
         dash = Dashboard(ds.K)
     ckpt_path = os.path.join(args.out, "checkpoint.npz")
+    profiled = ProfiledFrames(args.out, args.profile_frames)
 
-    t0 = time.perf_counter()
-    if args.chunked:
-        # streaming throughput mode: decode-ahead Prefetcher feeds the chunk step
-        # chunk by chunk — O(chunk) host memory at any sequence length
-        def on_chunk(start, Rs, ts, ok, ninl):
-            for j in range(len(ok)):
-                metrics.log_chunk_frame(start + j, bool(ok[j]), int(ninl[j]))
+    with profiled:
+        t0 = time.perf_counter()
+        if args.chunked:
+            # streaming throughput mode: decode-ahead Prefetcher feeds the chunk step
+            # chunk by chunk — O(chunk) host memory at any sequence length
+            def on_chunk(start, Rs, ts, ok, ninl):
+                for j in range(len(ok)):
+                    metrics.log_chunk_frame(start + j, bool(ok[j]), int(ninl[j]))
+                profiled.count(len(ok))
 
-        if args.resume:
-            start = vo.resume(args.resume)
-            pf = Prefetcher(ds, start=start, depth=cfg.runtime.prefetch_depth)
-            vo.run_chunked_continue(pf, produced=start, n_frames=n_frames,
-                                    checkpoint_every=args.checkpoint_every,
-                                    checkpoint_path=ckpt_path, on_chunk=on_chunk)
-        else:
-            pf = Prefetcher(ds, depth=cfg.runtime.prefetch_depth)
-            vo.run_chunked(pf, n_frames=n_frames,
-                           checkpoint_every=args.checkpoint_every,
-                           checkpoint_path=ckpt_path, on_chunk=on_chunk)
-        pf.close()
-    else:
-        def on_frame(i, res):
-            metrics.log_frame(i, res)
-            if cfg.debug:
-                print(f"---------- frame {i} ---------- tracked={int(res.n_tracked)} "
-                      f"inliers={int(res.n_inliers)} cands={int(res.n_candidates)} "
-                      f"promoted={int(res.n_promoted)} rms={float(res.reproj_rms):.2f}")
-            if dash is not None and i % viz_every == 0:
-                dash.update(vo.state.prev_image, vo.state, res)
-                dash.render(os.path.join(args.out, f"dash_{i:06d}.png"), show=cfg.animation)
-            if cfg.visualization and i and i % 200 == 0:
-                # periodic trajectory plot; trajectory[0] is frame gap's pose →
-                # align GT from gap
-                from lcvo_tpu_torch.viz import plot_trajectory
-
-                gt_p = ds.gt_positions()
-                if gt_p is not None:
-                    gt_p = gt_p[cfg.bootstrap.frame_gap :]
-                plot_trajectory(np.asarray(vo.trajectory), gt_p,
-                                os.path.join(args.out, f"trajectory_{i:06d}.png"),
-                                title=f"{cfg.dataset} @ frame {i}")
-
-        if args.resume:
-            start = vo.resume(args.resume)
-            vo.run_continue((ds.frame(i) for i in range(start, n_frames)), n_frames, start,
-                            on_frame=on_frame, checkpoint_every=args.checkpoint_every,
-                            checkpoint_path=ckpt_path)
-        else:
-            pf = Prefetcher(ds, depth=cfg.runtime.prefetch_depth)
-            vo.run(pf, n_frames,
-                   on_frame=on_frame, checkpoint_every=args.checkpoint_every,
-                   checkpoint_path=ckpt_path)
+            if args.resume:
+                start = vo.resume(args.resume)
+                pf = Prefetcher(ds, start=start, depth=cfg.runtime.prefetch_depth)
+                vo.run_chunked_continue(pf, produced=start, n_frames=n_frames,
+                                        checkpoint_every=args.checkpoint_every,
+                                        checkpoint_path=ckpt_path, on_chunk=on_chunk)
+            else:
+                pf = Prefetcher(ds, depth=cfg.runtime.prefetch_depth)
+                vo.run_chunked(pf, n_frames=n_frames,
+                               checkpoint_every=args.checkpoint_every,
+                               checkpoint_path=ckpt_path, on_chunk=on_chunk)
             pf.close()
-    wall = time.perf_counter() - t0
+        else:
+            def on_frame(i, res):
+                metrics.log_frame(i, res)
+                profiled.count(1)
+                if cfg.debug:
+                    print(f"---------- frame {i} ---------- tracked={int(res.n_tracked)} "
+                          f"inliers={int(res.n_inliers)} cands={int(res.n_candidates)} "
+                          f"promoted={int(res.n_promoted)} rms={float(res.reproj_rms):.2f}")
+                if dash is not None and i % viz_every == 0:
+                    dash.update(vo.state.prev_image, vo.state, res)
+                    dash.render(os.path.join(args.out, f"dash_{i:06d}.png"), show=cfg.animation)
+                if cfg.visualization and i and i % 200 == 0:
+                    # periodic trajectory plot; trajectory[0] is frame gap's pose →
+                    # align GT from gap
+                    from lcvo_tpu_torch.viz import plot_trajectory
+
+                    gt_p = ds.gt_positions()
+                    if gt_p is not None:
+                        gt_p = gt_p[cfg.bootstrap.frame_gap :]
+                    plot_trajectory(np.asarray(vo.trajectory), gt_p,
+                                    os.path.join(args.out, f"trajectory_{i:06d}.png"),
+                                    title=f"{cfg.dataset} @ frame {i}")
+
+            if args.resume:
+                start = vo.resume(args.resume)
+                vo.run_continue((ds.frame(i) for i in range(start, n_frames)), n_frames, start,
+                                on_frame=on_frame, checkpoint_every=args.checkpoint_every,
+                                checkpoint_path=ckpt_path)
+            else:
+                pf = Prefetcher(ds, depth=cfg.runtime.prefetch_depth)
+                vo.run(pf, n_frames,
+                       on_frame=on_frame, checkpoint_every=args.checkpoint_every,
+                       checkpoint_path=ckpt_path)
+                pf.close()
+        wall = time.perf_counter() - t0
+    trace = profiled.summary()
 
     est = np.asarray(vo.trajectory)
 
@@ -156,6 +215,7 @@ def run_and_summarise(args) -> tuple[dict, dict]:
         # pose_ok_rate below counts the recovery frames as not-ok rows
         "n_rebootstraps": vo.n_rebootstraps,
         **metrics.summary(),
+        **trace,
     }
     seg_scales = None
     gt_al = None

@@ -37,7 +37,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lcvo_tpu_torch.config import VOConfig
 from lcvo_tpu_torch.core import geometry as geo
@@ -52,7 +51,7 @@ from lcvo_tpu_torch.ops.pyramid import build_pyramid
 from lcvo_tpu_torch.solve.ba import window as win_mod
 from lcvo_tpu_torch.utils import checkpoint as ckpt
 from lcvo_tpu_torch.utils import graphs
-from lcvo_tpu_torch.utils import jax_random
+from lcvo_tpu_torch.utils import jax_random, profiling
 
 
 class FrameResult(NamedTuple):
@@ -124,16 +123,16 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
     mode = cfg.find_new_candidates_method
 
     def process_frame(state: st.VOState, image: torch.Tensor, u=None, pnp_sampler=None):
-        with record_function("lcvo.pyramid"):
+        with profiling.span("lcvo.pyramid"):
             image = image.to(torch.float32)
             pyr_new = build_pyramid(image.to(pyr_dtype), kltc.levels)
-        with record_function("lcvo.klt"):
+        with profiling.span("lcvo.klt"):
             tracks, cands, n_tracked = _track(state, pyr_new)
-        with record_function("lcvo.pnp"):
+        with profiling.span("lcvo.pnp"):
             R, t, pose_ok, n_inl, tracks, rms = _localize(state, tracks, u, pnp_sampler)
-        with record_function("lcvo.map"):
+        with profiling.span("lcvo.map"):
             tracks, cands, n_promoted = _update_map(tracks, cands, R, t)
-        with record_function("lcvo.detect"):
+        with profiling.span("lcvo.detect"):
             cands, new_desc, new_desc_valid = _detect(state, image, tracks, cands, R, t)
 
         health = torch.where(pose_ok, torch.zeros_like(state.health), state.health + 1)
@@ -271,13 +270,13 @@ def make_process_frame(cfg: VOConfig, K, device="cuda"):
                 window=det.window, border=kltc.border, harris_k=det.harris_k,
             )
         else:
-            with record_function("lcvo.detect.sift"):
+            with profiling.span("lcvo.detect.sift"):
                 feats = _sift_features(cfg, image, compute_desc=(mode == "sift-sift"))
             pts_det, det_ok = feats.pts, feats.valid
             if mode == "sift-sift":
                 # keypoints whose descriptor matches the previous frame are old
                 # content: only unmatched ones become candidates
-                with record_function("lcvo.detect.match"):
+                with profiling.span("lcvo.detect.match"):
                     _, matched = knn_match_ratio(
                         feats.desc, feats.valid, state.prev_desc, state.prev_desc_valid,
                         ratio=cfg.descriptor.ratio_thresh)
@@ -377,7 +376,7 @@ def make_ba_step(cfg: VOConfig, K, device="cuda"):
     n_fix = min(2, ba.window - 1)
 
     def ba_step(state: st.VOState, window: win_mod.KeyframeWindow):
-        with record_function("lcvo.ba"):
+        with profiling.span("lcvo.ba"):
             window = win_mod.push(window, state.tracks, state.R, state.t)
             window, tracks, R, t, res = win_mod.refine_window(
                 window, state.tracks, Kt, iters=ba.gn_iters, n_fix=n_fix, huber=huber_n,
@@ -541,7 +540,11 @@ class VisualOdometry:
     state donated when ``cfg.runtime.donate_state`` is set; ``graphs.disable_graphs()``
     runs them eagerly. The state and the window are then the graphs' buffers: every bootstrap,
     :meth:`set_chunk_carry` and :meth:`resume` write into them and never rebind them, so
-    a re-bootstrap mid-run replays the same graphs. On the CPU the steps run eagerly."""
+    a re-bootstrap mid-run replays the same graphs. On the CPU the steps run eagerly.
+
+    Each ``step``, chunk and ``bootstrap`` is a call of the flight recorder
+    (``utils/profiling.py``), with its spans and the run ordinal of the ``run`` or
+    ``run_chunked`` it belongs to (0 for the object's first)."""
 
     def __init__(self, cfg: VOConfig, K: np.ndarray, device="cuda"):
         check_supported(cfg)
@@ -564,6 +567,7 @@ class VisualOdometry:
         # every bootstrap starts again at 0, so the BA cadence is decided here and the
         # device is never asked (checked against it once per chunk)
         self._frame_idx = 0
+        self._runs = 0                          # run / run_chunked calls begun
         # sliding-window BA
         self.window: win_mod.KeyframeWindow | None = None
         self.n_keyframes = 0                    # keyframes pushed, counted on the host
@@ -572,6 +576,7 @@ class VisualOdometry:
             # [refines run, refines whose cost is not <= the cost they started from],
             # kept on the device and read only when ba_refine_stats() is asked
             self._ba_stats = torch.zeros((2,), dtype=torch.int32, device=self.device)
+        profiling.watch_gc()
         self._compile_steps()
 
     def _compile_steps(self, capture=None):
@@ -661,6 +666,10 @@ class VisualOdometry:
         self._ahead = {k.tobytes(): draws[i] for i, k in enumerate(keys[1:], 1)}
         return draws[0]
 
+    def _next_uniforms(self) -> torch.Tensor:
+        """The uniforms of the next step key."""
+        return self._step_uniforms(self._next_key())
+
     def _frame(self, f) -> torch.Tensor:
         """A frame on the device in its own dtype (uint8 stays uint8; the step casts)."""
         return torch.as_tensor(np.asarray(f)).to(self.device)
@@ -684,6 +693,10 @@ class VisualOdometry:
         package: a NaN hypothesis can win the MSAC argmin, and the bootstrap then
         returns 0 inliers with a NaN pose, which the host loops treat as a weak
         bootstrap (they extend or slide the window)."""
+        return profiling.call("bootstrap", len(self.trajectory), self._runs - 1,
+                              self._bootstrap, frames, R0, t0, scale)
+
+    def _bootstrap(self, frames, R0, t0, scale) -> int:
         cfg = self.cfg
         dev = self.device
         svd_mod.reset(dev)
@@ -727,7 +740,8 @@ class VisualOdometry:
         # the one read-back (f64 holds the f32 centers and the counts exactly)
         back = [geo.camera_center(R_last, t_last), geo.camera_center(R0t, t0t),
                 n_inl.reshape(1), svd_mod.record(dev).reshape(-1)]
-        host = torch.cat([x.to(torch.float64) for x in back]).cpu().numpy()
+        with profiling.span("vo.readback"):
+            host = torch.cat([x.to(torch.float64) for x in back]).cpu().numpy()
         self.last_bootstrap_svd_failures = sum(svd_mod.failures(host[7:]).values())
         c_last, c0, n = host[0:3].astype(np.float32), host[3:6].astype(np.float32), int(host[6])
         # seed the constant-velocity model with the bootstrap window's mean per-frame
@@ -770,8 +784,12 @@ class VisualOdometry:
     # -- per-frame ---------------------------------------------------------
     def step(self, image) -> FrameResult:
         assert self.state is not None, "call bootstrap() first"
-        u = self._step_uniforms(self._next_key())
-        self.state, res = self._process(self.state, self._frame(image), u)
+        return profiling.call("step", self._frame_idx, self._runs - 1, self._step, image)
+
+    def _step(self, image) -> FrameResult:
+        u = profiling.lap("vo.keys", self._next_uniforms)
+        frame = profiling.lap("vo.upload", self._frame, image)
+        self.state, res = self._process(self.state, frame, u)
         self._frame_idx += 1
         if self.window is not None and self._frame_idx % self.cfg.ba.keyframe_every == 0:
             self._ba_step()
@@ -911,6 +929,7 @@ class VisualOdometry:
         :meth:`resume` + :meth:`run_chunked_continue`. ``on_chunk(start, Rs, ts, ok,
         ninl)`` receives each chunk's per-frame outputs."""
         gap = self.cfg.bootstrap.frame_gap
+        self._runs += 1
         if n_frames is None and hasattr(frames, "__len__"):
             n_frames = len(frames)
         it = iter(frames)
@@ -963,10 +982,14 @@ class VisualOdometry:
                 out.extend(pull(k - len(out)))
             return out
 
-        buf = take(chunk)
-        while len(buf) == chunk:
-            keys = jax_random.split(self._next_key(), chunk)
-            batch = torch.from_numpy(np.stack([np.asarray(f) for f in buf])).to(self.device)
+        def one_chunk(buf) -> tuple[int, bool]:
+            """One chunk through ``chunk_fn``, its poses emitted and, where tracking
+            collapsed inside it, the re-bootstrap after it: the poses it produced, and
+            whether the sequence ended inside the re-bootstrap's burst."""
+            with profiling.span("vo.keys"):
+                keys = jax_random.split(self._next_key(), chunk)
+            with profiling.span("vo.upload"):
+                batch = torch.from_numpy(np.stack([np.asarray(f) for f in buf])).to(self.device)
             carry, (Rs, ts, ok, ninl) = chunk_fn(self.chunk_carry(), batch, keys,
                                                  frame_idx=self._frame_idx)
             self.set_chunk_carry(carry, chunk)
@@ -978,7 +1001,8 @@ class VisualOdometry:
                                 ninl[:, None].float(),
                                 self.state.health.float().expand(chunk)[:, None],
                                 self.state.frame_idx.float().expand(chunk)[:, None]], dim=1)
-            packed = packed.cpu().numpy()
+            with profiling.span("vo.readback"):
+                packed = packed.cpu().numpy()
             Rs_h = packed[:, :9].reshape(chunk, 3, 3)
             ts_h, ok_h = packed[:, 9:12], packed[:, 12] > 0.5
             ninl_h, health = packed[:, 13].astype(np.int64), int(packed[0, 14])
@@ -986,14 +1010,16 @@ class VisualOdometry:
                 raise RuntimeError(
                     f"the host's mirror of frame_idx ({self._frame_idx}) left the device's "
                     f"({int(packed[0, 15])}): the state was replaced without set_chunk_carry")
-            if on_chunk is not None:
-                on_chunk(len(self.trajectory), Rs_h, ts_h, ok_h, ninl_h)
-            for j in range(chunk):
-                self._append_pose(Rs_h[j], ts_h[j], ok=bool(ok_h[j]))
-            produced += chunk
-            if health >= 2:
-                # tracking collapsed inside the chunk: re-bootstrap anchored at the
-                # held last pose, at the pre-failure metric scale
+            with profiling.span("vo.emit"):
+                if on_chunk is not None:
+                    on_chunk(len(self.trajectory), Rs_h, ts_h, ok_h, ninl_h)
+                for j in range(chunk):
+                    self._append_pose(Rs_h[j], ts_h[j], ok=bool(ok_h[j]))
+            if health < 2:
+                return chunk, False
+            # tracking collapsed inside the chunk: re-bootstrap anchored at the held last
+            # pose, at the pre-failure metric scale
+            with profiling.span("vo.rebootstrap"):
                 self.n_rebootstraps += 1
                 R0, t0 = self._host_pose()
                 speed = self._recent_step_scale()
@@ -1004,14 +1030,21 @@ class VisualOdometry:
                     R1, t1 = self._host_pose()
                     self._chunk_emit(on_chunk, [R0] * skip + [R1], [t0] * skip + [t1],
                                      [False] * skip + [True], ninl=[-1] * skip + [n_rb_inl])
-                    produced += skip + 1
-                else:  # the sequence ended inside the burst: hold the anchor
-                    if burst:
-                        self._chunk_emit(on_chunk, [R0] * len(burst), [t0] * len(burst),
-                                         [False] * len(burst))
-                    produced += len(burst)
-                    buf = []
-                    break
+                    return chunk + skip + 1, False
+                # the sequence ended inside the burst: hold the anchor
+                if burst:
+                    self._chunk_emit(on_chunk, [R0] * len(burst), [t0] * len(burst),
+                                     [False] * len(burst))
+                return chunk + len(burst), True
+
+        buf = take(chunk)
+        while len(buf) == chunk:
+            n, ended = profiling.call("chunk", len(self.trajectory), self._runs - 1,
+                                      one_chunk, buf)
+            produced += n
+            if ended:
+                buf = []
+                break
             if checkpoint_every and checkpoint_path and produced - last_ckpt >= checkpoint_every:
                 self.save(checkpoint_path, produced)
                 last_ckpt = produced
@@ -1036,6 +1069,7 @@ class VisualOdometry:
         gap = bootstrap_gap or cfg.bootstrap.frame_gap
         min_m = cfg.bootstrap.min_matches
         max_extend = 4
+        self._runs += 1
         it = iter(frame_iter)
         frames = [f for _, f in zip(range(gap + 1), it)]
         if len(frames) < gap + 1:
@@ -1109,7 +1143,7 @@ class VisualOdometry:
                 continue
             res = self.step(img)
             self._emit(res, on_frame)
-            if int(self.state.health) >= 2:
+            if profiling.within("vo.health", int, self.state.health) >= 2:
                 self.n_rebootstraps += 1
                 rebootstrap_buf = [img]
                 slides = 0

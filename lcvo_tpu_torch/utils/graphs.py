@@ -68,6 +68,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from lcvo_tpu_torch import kernels
+from lcvo_tpu_torch.utils import profiling
 
 _SCALARS = (bool, int, float, str, type(None))
 _disabled = 0
@@ -100,16 +101,21 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
                       and a.shape == b.shape and a.stride() == b.stride())
 
 
-def _assign(pairs) -> set:
+def _assign(pairs) -> int:
     """``dst <- src`` for each ``(dst, src)`` pair of tensors that are not one tensor. A
     source that shares memory with a destination is copied to a temporary first, so
-    every read comes before every write. Returns the storages written."""
+    every read comes before every write. Returns the number of tensors written."""
     pairs = [(d, s) for d, s in pairs if not _same(d, s)]
     written = {_storage(d) for d, _ in pairs}
     pairs = [(d, s.clone() if _storage(s) in written else s) for d, s in pairs]
     for d, s in pairs:
         d.copy_(s)
-    return written
+    return len(pairs)
+
+
+def _clones(leaves: list) -> list:
+    """The leaves with every tensor cloned."""
+    return [x.clone() if torch.is_tensor(x) else x for x in leaves]
 
 
 def _unaliased(leaves: list) -> list:
@@ -143,7 +149,7 @@ def place(dst, src):
         if fits and all(a is b for a, b in zip(_unaliased(dl), dl)):
             _assign([(d, s) for d, s in zip(dl, sl) if d is not None])
             return dst
-    return tree_unflatten([x.clone() if torch.is_tensor(x) else x for x in sl], spec)
+    return tree_unflatten(_clones(sl), spec)
 
 
 def _where(exc: BaseException) -> str:
@@ -202,28 +208,135 @@ class _CudaGraphs:
         g.replay()
         return outs
 
+    def nodes(self) -> int:
+        """Nodes captured so far (called inside :meth:`capture`'s body)."""
+        return _captured_so_far(self.stream.cuda_stream)
+
+    def node_kinds(self, handle) -> list:
+        return _node_kinds(handle[0])
+
     def pool_bytes(self) -> int:
         """Bytes the caching allocator holds in this pool's segments."""
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
 
 
+_DRIVER = None
+# CUgraphNodeType, by value
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+               "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free",
+               "batch_mem_op", "conditional")
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("gridDimX", "gridDimY", "gridDimZ", "blockDimX",
+                                     "blockDimY", "blockDimZ", "sharedMemBytes")] + [
+        ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _driver():
+    """The CUDA driver API, its calls that this module makes declared."""
+    global _DRIVER
+    if _DRIVER is None:
+        cu = ctypes.CDLL("libcuda.so.1")
+        p, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+        sigs = {"cuGraphGetNodes": [p, p, size_p],
+                "cuGraphNodeGetType": [p, ctypes.POINTER(ctypes.c_int)],
+                "cuGraphKernelNodeGetParams_v2": [p, ctypes.POINTER(_KernelNodeParams)],
+                "cuFuncGetName": [ctypes.POINTER(ctypes.c_char_p), p],
+                "cuKernelGetName": [ctypes.POINTER(ctypes.c_char_p), p],
+                # (stream, status, id, graph, dependencies, [edge data,] count)
+                "cuStreamGetCaptureInfo_v3": [p, ctypes.POINTER(ctypes.c_int), p,
+                                              ctypes.POINTER(p), p, p, p],
+                "cuStreamGetCaptureInfo_v2": [p, ctypes.POINTER(ctypes.c_int), p,
+                                              ctypes.POINTER(p), p, p]}
+        for name, argtypes in sigs.items():
+            if hasattr(cu, name):
+                fn = getattr(cu, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _DRIVER = cu
+    return _DRIVER
+
+
+def _check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} failed ({code})")
+
+
+def _count_nodes(graph) -> int:
+    n = ctypes.c_size_t(0)
+    _check(_driver().cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    return n.value
+
+
 def _graph_nodes(g: torch.cuda.CUDAGraph) -> int:
     """Nodes of a captured graph (kernels, copies, memsets): ``cuGraphGetNodes`` of the
     CUDA driver API."""
-    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    fn.restype = ctypes.c_int
-    n = ctypes.c_size_t(0)
-    code = fn(ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
-    if code != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed ({code})")
-    return n.value
+    return _count_nodes(ctypes.c_void_p(g.raw_cuda_graph()))
+
+
+def _captured_so_far(stream: int) -> int:
+    """Nodes of the graph that ``stream`` is capturing into, so far."""
+    cu, status, graph = _driver(), ctypes.c_int(0), ctypes.c_void_p()
+    s = ctypes.c_void_p(stream)
+    if hasattr(cu, "cuStreamGetCaptureInfo_v3"):
+        code = cu.cuStreamGetCaptureInfo_v3(s, ctypes.byref(status), None, ctypes.byref(graph),
+                                            None, None, None)
+    else:
+        code = cu.cuStreamGetCaptureInfo_v2(s, ctypes.byref(status), None, ctypes.byref(graph),
+                                            None, None)
+    _check(code, "cuStreamGetCaptureInfo")
+    return _count_nodes(graph) if graph.value else 0
+
+
+_KERNEL_NAMES: dict = {}         # function or kernel handle -> demangled name
+
+
+def _kernel_name(p: _KernelNodeParams):
+    """The demangled name of a kernel node's function, as the profiler prints it; looked
+    up once per function (a graph launches few distinct kernels many times)."""
+    handle = p.func or p.kern
+    if handle in _KERNEL_NAMES:
+        return _KERNEL_NAMES[handle]
+    cu, name, code = _driver(), ctypes.c_char_p(), -1
+    if p.func and hasattr(cu, "cuFuncGetName"):
+        code = cu.cuFuncGetName(ctypes.byref(name), p.func)
+    elif p.kern and hasattr(cu, "cuKernelGetName"):
+        code = cu.cuKernelGetName(ctypes.byref(name), p.kern)
+    got = torch._C._demangle(name.value.decode()) if code == 0 and name.value else None
+    if handle:
+        _KERNEL_NAMES[handle] = got
+    return got
+
+
+def _node_kinds(g: torch.cuda.CUDAGraph) -> list:
+    """Each node of a captured graph in capture order: ``(type, kernel name)``, the name
+    demangled as the profiler prints it, ``None`` where the node is no kernel or the
+    driver gives none."""
+    cu, graph = _driver(), ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(_count_nodes(graph))
+    arr = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(graph, arr, ctypes.byref(n)), "cuGraphGetNodes")
+    params = hasattr(cu, "cuGraphKernelNodeGetParams_v2")
+    t, p, out = ctypes.c_int(-1), _KernelNodeParams(), []
+    for node in arr[:n.value]:
+        _check(cu.cuGraphNodeGetType(node, ctypes.byref(t)), "cuGraphNodeGetType")
+        kind = _NODE_TYPES[t.value] if 0 <= t.value < len(_NODE_TYPES) else str(t.value)
+        name = None
+        if kind == "kernel" and params and cu.cuGraphKernelNodeGetParams_v2(
+                node, ctypes.byref(p)) == 0:
+            name = _kernel_name(p)
+        out.append((kind, name))
+    return out
 
 
 class _Entry:
     """One captured graph: its input buffers, how many output leaves are the donated
-    state (returned as they are), launches per replay and figures of the capture."""
+    state (returned as they are), launches per replay, figures of the capture, and
+    counts of its replays and of the tensors they copied in and cloned out."""
 
     def __init__(self, backend, bufs, handle, n_keep, launches, info):
         self.backend = backend
@@ -233,6 +346,8 @@ class _Entry:
         self.launches = launches
         self.info = info
         self.replays = 0
+        self.copies_in = 0          # tensors copied into the input buffers, all replays
+        self.clones = None          # output tensors cloned a replay
 
 
 class CompiledStep:
@@ -250,9 +365,16 @@ class CompiledStep:
         self._capture_with = capture
         self._backends: dict = {}
         self._entries: dict = {}
+        self._span = "graph." + self.name
 
     # -- calling -------------------------------------------------------------------
     def __call__(self, *args):
+        # one test for the spans that only a trace needs (graph.<name>, copy_in, copy_out)
+        if profiling.tracing():
+            return profiling.within(self._span, self._call, args, True)
+        return self._call(args, False)
+
+    def _call(self, args, traced: bool):
         leaves, spec = tree_flatten(args)
         tensors = [x for x in leaves if torch.is_tensor(x)]
         if _disabled or self.eager or (self._capture_with is None
@@ -268,8 +390,10 @@ class CompiledStep:
         if entry is None:
             entry = self._entries[key] = self._capture(args, leaves, spec, devices.pop())
         else:
-            _assign([(b, x) for b, x in zip(entry.bufs, leaves) if torch.is_tensor(b)])
-        return self._replay(entry)
+            pairs = [(b, x) for b, x in zip(entry.bufs, leaves) if torch.is_tensor(b)]
+            entry.copies_in += (profiling.within("graph.copy_in", _assign, pairs) if traced
+                                else _assign(pairs))
+        return self._replay(entry, traced)
 
     def _key_of(self, x):
         if torch.is_tensor(x):
@@ -296,12 +420,11 @@ class CompiledStep:
         backend = self._backend(device)
         n_don = len(tree_flatten(args[0])[0]) if self.donate else 0
         # the donated state's tensors are adopted (de-aliased), every other tensor copied
-        bufs = _unaliased(leaves[:n_don]) + [x.clone() if torch.is_tensor(x) else x
-                                             for x in leaves[n_don:]]
+        bufs = _unaliased(leaves[:n_don]) + _clones(leaves[n_don:])
         static = tree_unflatten(bufs, spec)
         counts = dict(kernels.LAUNCHES)
 
-        copies = tree_unflatten([x.clone() if torch.is_tensor(x) else x for x in bufs], spec)
+        copies = tree_unflatten(_clones(bufs), spec)
         t0 = time.perf_counter()
         backend.warmup(lambda: self.fn(*copies))
         warmup_s = time.perf_counter() - t0
@@ -337,33 +460,43 @@ class CompiledStep:
             return (static[0], *tree_unflatten(rest, rest_spec))
 
         try:
-            handle, info = backend.capture(body)
+            with profiling.capturing(self.name, getattr(backend, "nodes", None)) as cap:
+                handle, info = backend.capture(body)
         except Exception as exc:
             kernels.LAUNCHES.update(counts)
             raise GraphCaptureError(f"{self.name}: CUDA graph capture failed at {_where(exc)}: "
                                     f"{type(exc).__name__}: {exc}") from exc
+        t0 = time.perf_counter()
+        if cap is not None and cap.record(self.name, lambda: backend.node_kinds(handle)):
+            info = {**info, "stages_s": time.perf_counter() - t0}
         launches = {k: kernels.LAUNCHES[k] - counts[k] for k in counts}
         kernels.LAUNCHES.update(counts)
         return _Entry(backend, bufs, handle, n_don, launches, {"warmup_s": warmup_s, **info})
 
-    def _replay(self, entry: _Entry):
-        out = entry.backend.replay(entry.handle)
+    def _replay(self, entry: _Entry, traced: bool):
+        out = profiling.within("graph.launch", entry.backend.replay, entry.handle)
         for k, n in entry.launches.items():
             kernels.LAUNCHES[k] += n
         entry.replays += 1
         self.replayed = True
         leaves, spec = tree_flatten(out)
         n = entry.n_keep
-        return tree_unflatten(leaves[:n] + [x.clone() if torch.is_tensor(x) else x
-                                            for x in leaves[n:]], spec)
+        rest = (profiling.within("graph.copy_out", _clones, leaves[n:]) if traced
+                else _clones(leaves[n:]))
+        if entry.clones is None:
+            entry.clones = sum(torch.is_tensor(x) for x in rest)
+        return tree_unflatten(leaves[:n] + rest, spec)
 
     # -- figures -------------------------------------------------------------------
     def stats(self) -> list[dict]:
         """One dict per captured graph: the step's name, warm-up, capture and
-        instantiation seconds, graph nodes (on the card), replays and kernel launches
-        per replay."""
+        instantiation seconds, graph nodes (on the card), replays, kernel launches per
+        replay, the tensors a replay copied into the graph's input buffers (on average) and
+        the output tensors it cloned."""
         return [{"name": self.name, **e.info, "replays": e.replays,
-                 "launches_per_replay": {k: n for k, n in e.launches.items() if n}}
+                 "launches_per_replay": {k: n for k, n in e.launches.items() if n},
+                 "copies_in_per_replay": e.copies_in / max(e.replays, 1),
+                 "clones_per_replay": e.clones or 0}
                 for e in self._entries.values()]
 
     def pool_bytes(self) -> int:

@@ -357,6 +357,7 @@ def test_cli_has_the_reference_flags_and_device():
     flags = lambda p: {a.option_strings[0]: (a.default, type(a).__name__) for a in p._actions}
     t, j = flags(cli.build_parser()), flags(jcli.build_parser())
     assert t.pop("--device") == ("cuda", "_StoreAction")
+    assert t.pop("--profile-frames") == (0, "_StoreAction")
     assert t == j
 
 

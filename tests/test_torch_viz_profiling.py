@@ -1,6 +1,7 @@
 """The port's visualization and profiling modules on the CPU: counterparts of the three
 tests of tests/test_viz.py (fed with tensors, as the port's state and result hold them)
-and of the three of tests/test_profiling.py."""
+and of tests/test_profiling.py's trace test (tests/test_torch_tracing.py holds the
+port's spans and recorder)."""
 
 import json
 import os
@@ -113,45 +114,10 @@ def test_plot_trajectory(tmp_path):
     assert os.path.getsize(tmp_path / "nogt.png") > 1000
 
 
-def test_stage_timer_measures():
-    timer = profiling.StageTimer(warmup=1, iters=3, device="cpu")
-    x = torch.ones((64, 64))
-    dt = timer.measure("matmul", lambda a: (a @ a).sum(), x)
-    assert dt > 0
-    assert "matmul" in timer.results
-    timer.measure("add", lambda a: a + a, x)
-    rep = timer.report()
-    assert "matmul" in rep and "add" in rep and "total" in rep
-
-
-def test_stage_timer_defaults_to_cuda():
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a CUDA device")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        profiling.StageTimer()
-
-
-def test_cost_analysis_flops():
-    def f(a, b):
-        return a @ b
-
-    a = torch.ones((128, 128))
-    b = torch.ones((128, 128))
-    ca = profiling.cost_analysis(f, a, b)
-    assert ca["flops"] == 2 * 128**3                  # 2*N^3 for the matmul
-    assert ca["bytes_in_out"] == 3 * 128 * 128 * 4    # two inputs read, one output written
-    assert set(ca) == {"flops", "bytes_in_out"}       # nothing guessed beside them
-    s = profiling.flops_summary(f, a, b)
-    assert "flops=4.194e+06" in s and "bytes_in_out=1.966e+05" in s
-    # tensors inside tuples and dicts count; elementwise work has no FLOP formula
-    ca = profiling.cost_analysis(lambda t, d: t[0] + d["x"], (a, 3), {"x": b})
-    assert ca == {"flops": 0.0, "bytes_in_out": float(3 * 128 * 128 * 4)}
-
-
 def test_trace_capture(tmp_path):
     d = str(tmp_path / "trace")
     with profiling.trace(d) as prof:
-        with profiling.annotate("lcvo.test_span"):
+        with profiling.span("lcvo.test_span"):
             (torch.ones((8, 8)) * 2).sum()
     # a Chrome/Perfetto trace with the named span in it
     assert os.listdir(d) == ["trace.json"]
