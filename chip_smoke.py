@@ -42,6 +42,23 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    pose: a NaN hypothesis wins the MSAC argmin, as in the JAX package), each SVD call's
    NaN matrices those flagged or not finite, graphed = eager bit for bit (the graphs
    captured under the cap); ``run`` with its first bootstrap capped extends the window.
+   Then ``[kernel] p3p``: the P3P kernel (``csrc/p3p.cu``) against its plain version
+   (``ops/pnp.py::p3p_grunert_plain``) at 512 and 8 x 512 minimal sets: sets drawn from
+   a noisy scene, sets whose quartic has a double or a near-double root, and the sets
+   that the default and ``turn_robust`` paths draw in an eager run of their first
+   ``P3P_RECORD_FRAMES`` frames (each call alone, and all a path's calls as one batch).
+   Prints the share of bit-equal R, t and ok, the largest gaps where both keep a root,
+   and the ok mismatches, and raises unless every call of 512 sets is bit-equal with no
+   ok mismatch: the scene, double and near-double batches, each 512-set slice of the
+   8 x 512 stack and each call the paths made. A stack in one call must give the bits of
+   its calls one by one; its comparison with the plain version called on the whole stack
+   is only printed (the plain version's 5 x 5 coefficient product runs there as another
+   cuBLAS kernel, whose sums round otherwise). The 8 x 512 stack through
+   ``torch.func.vmap`` equal to the direct call, exactly; each recorded ``pnp_ransac``
+   call with the kernel against the same call with the plain version (R and t within
+   ``P3P_RANSAC_TOL``, the same inlier count); kernel and plain times replayed in a CUDA
+   graph beside the kernel's bound. The main paths below hold their ``p3p`` launches to
+   their PnP calls: one a ``process_frame`` replay, one a batched streams step.
 4. Main paths, on the same 42 synthetic corridor frames at 1240x376, each with the
    launch counters set to 0 just before and read just after, each through
    ``VisualOdometry(cfg, K, device="cuda").run_chunked(frames, chunk=16)`` (bootstrap,
@@ -221,7 +238,8 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    from its configuration and re-bootstrap count, each path checked against it); the
    kernel table as one JSON line (the 2-D entry, whose ``launches_by_path`` holds every
    single-stream path above, the layered entry, and the SVD route with its launches on
-   the main and mode paths), the ``nvidia-smi`` line, then
+   the main and mode paths, and the P3P kernel with its launches by phase), the
+   ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports neither JAX nor ``lcvo_tpu``.
@@ -324,6 +342,18 @@ DIST_MATCH = (1024, 1024, 128)
 DIST_RANKS = 2
 DIST_RANK_TIMEOUT_S = 180
 BA_LINE = {"cost0_rel": 1e-5, "cost_rel": 0.05, "R": 2e-4, "t": 2e-3, "X": 2e-2}
+# [kernel] p3p: the driven paths' own minimal sets come from an eager run of this many
+# frames (bootstrap and 19 steps); pnp_ransac with the kernel is held to the same call
+# with the plain P3P within P3P_RANSAC_TOL on R and t, with the same inlier count.
+P3P_RECORD_FRAMES = 26
+P3P_RANSAC_TOL = 1e-4
+# operations of one minimal set, counted from csrc/p3p.cu: the loop's 40 iterations x 4
+# roots x 76 (Horner 26, differences 16, three complex products 18, Smith's division 10,
+# the guard 4, the update 2), the setup ~200 and the back-substitution with the two
+# triads and R, t ~700
+P3P_FLOPS_PER_SET = 40 * 4 * 76 + 200 + 700
+# bytes a set reads (Pw, f) and writes (R, t, ok)
+P3P_BYTES_PER_SET = 2 * 9 * 4 + 4 * (9 + 3) * 4 + 4
 # The three candidate modes of bench.py that no earlier phase runs, as bench.py builds
 # them (the VOConfig defaults with find_new_candidates_method set; "+ba" turns window BA
 # on at its defaults): sift-mask and harris-mask on N_FRAMES frames, shi-mask+ba on
@@ -838,6 +868,190 @@ def kernel_phase(cfg, ref_cfg, path_cfgs) -> dict:
     }
 
 
+def _p3p_sets(kind: str, n: int, rng):
+    """``n`` minimal sets of ``kind`` (``data/minimal_sets.py``) on the card."""
+    import torch
+
+    from lcvo_tpu_torch.data import minimal_sets
+
+    return tuple(torch.from_numpy(a).cuda() for a in minimal_sets.p3p_sets(kind, n, rng))
+
+
+def _p3p_compare(got, want) -> dict:
+    """The kernel's (R, t, ok) against the plain version's: shares of bit-equal values and
+    of sets equal in every bit, ok mismatches, the largest gaps where both keep a root."""
+    (R, t, ok), (Rp, tp, okp) = got, want
+
+    def same(a, b):
+        return (a == b) | (a.isnan() & b.isnan())
+
+    both = ok & okp
+    sets = same(R, Rp).flatten(-3).all(-1) & same(t, tp).flatten(-2).all(-1) & (ok == okp).all(-1)
+    return {"sets": int(sets.numel()), "sets_bits_equal": float(sets.float().mean()),
+            "R_bits_equal": float(same(R, Rp).float().mean()),
+            "t_bits_equal": float(same(t, tp).float().mean()),
+            "ok_mismatches": int((ok != okp).sum()), "ok_kernel": int(ok.sum()),
+            "R_gap_max": float((R - Rp).abs()[both].max()) if both.any() else 0.0,
+            "t_gap_max": float((t - tp).abs()[both].max()) if both.any() else 0.0}
+
+
+@contextlib.contextmanager
+def _plain_p3p():
+    """``pnp_ransac`` with the plain P3P in place of the kernel."""
+    from lcvo_tpu_torch.ops import pnp
+
+    kernel = pnp.p3p_grunert
+    pnp.p3p_grunert = pnp.p3p_grunert_plain
+    try:
+        yield
+    finally:
+        pnp.p3p_grunert = kernel
+
+
+def _recorded_pnp(cfg, seq, frames, n_frames: int) -> tuple[list, list]:
+    """Every ``pnp_ransac`` call (its arguments, cloned) and every P3P input of an eager
+    run of ``cfg`` over the first ``n_frames`` frames."""
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from lcvo_tpu_torch.ops import pnp
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    calls, sets = [], []
+    ransac, p3p = pnp.pnp_ransac, pnp.p3p_grunert
+
+    def rec_ransac(*a, **kw):
+        calls.append(tree_map(clone, (a, kw)))
+        return ransac(*a, **kw)
+
+    def rec_p3p(Pw, f):
+        sets.append((Pw.clone(), f.clone()))
+        return p3p(Pw, f)
+
+    pnp.pnp_ransac, pnp.p3p_grunert = rec_ransac, rec_p3p
+    try:
+        with disable_graphs():
+            VisualOdometry(cfg, seq.K, device="cuda").run_chunked(frames[:n_frames], chunk=CHUNK)
+    finally:
+        pnp.pnp_ransac, pnp.p3p_grunert = ransac, p3p
+    return calls, sets
+
+
+def p3p_phase(cfg, turn_cfg, seq, frames) -> dict:
+    """``[kernel] p3p``: the P3P kernel against its plain version on the card (see the
+    module docstring). Returns the kernel table's row."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.data import minimal_sets
+    from lcvo_tpu_torch.ops import pnp
+
+    rng = np.random.default_rng(17)
+    batches = {kind: _p3p_sets(kind, 512, rng) for kind in minimal_sets.KINDS}
+    scene8 = _p3p_sets("scene", 8 * 512, rng)
+    batches["scene_8x512"] = tuple(a.reshape(8, 512, 3, 3) for a in scene8)
+    recorded = {}
+    for tag, c in (("default", cfg), ("turn_robust", turn_cfg)):
+        recorded[tag] = _recorded_pnp(c, seq, frames, P3P_RECORD_FRAMES)
+        sets = recorded[tag][1]
+        batches[f"{tag}_draws"] = (torch.stack([p for p, _ in sets]), torch.stack([q for _, q in sets]))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    launched = 0
+    out, got = {}, {}
+    for name, (Pw, f) in batches.items():
+        got[name] = pnp.p3p_grunert(Pw, f)
+        launched += 1
+        out[name] = _p3p_compare(got[name], pnp.p3p_grunert_plain(Pw, f))
+        if Pw.dim() > 3:      # a stack of 512-set calls: each call alone too, at its own shape
+            each = [pnp.p3p_grunert(Pw[i], f[i]) for i in range(Pw.shape[0])]
+            launched += Pw.shape[0]
+            out[name]["one_call_each"] = _p3p_compare(
+                tuple(torch.stack([e[k] for e in each]) for k in range(3)),
+                tuple(torch.stack(x) for x in zip(*(pnp.p3p_grunert_plain(Pw[i], f[i])
+                                                    for i in range(Pw.shape[0])))))
+            out[name]["batch_equals_one_call_each"] = all(
+                torch.equal(got[name][k], torch.stack([e[k] for e in each])) for k in range(3))
+    vmapped = torch.func.vmap(pnp.p3p_grunert)(*batches["scene_8x512"])
+    launched += 1
+    vmap_ok = all(torch.equal(got["scene_8x512"][k], vmapped[k]) for k in range(3))
+    ransac = {}
+    for tag, (calls, _) in recorded.items():
+        worst = {"R": 0.0, "t": 0.0, "n_inliers_differ": 0, "calls": len(calls)}
+        for a, kw in calls:
+            R, t, _, n = pnp.pnp_ransac(*a, **kw)
+            launched += 1
+            with _plain_p3p():
+                Rp, tp, _, n_p = pnp.pnp_ransac(*a, **kw)
+            worst["R"] = max(worst["R"], float((R - Rp).abs().max()))
+            worst["t"] = max(worst["t"], float((t - tp).abs().max()))
+            worst["n_inliers_differ"] += int(n != n_p)
+        ransac[tag] = worst
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["p3p"]
+
+    times = {}
+    for name in ("scene", "scene_8x512"):
+        Pw, f = batches[name]
+        B = Pw.numel() // 9
+        times[name] = {
+            "sets": B,
+            "kernel_ms": graph_ms(lambda: pnp.p3p_grunert(Pw, f)),
+            "plain_ms": graph_ms(lambda: pnp.p3p_grunert_plain(Pw, f), inner=10, reps=7),
+            "bound_ms": 1e3 * max(B * P3P_BYTES_PER_SET / HBM_BYTES_PER_S,
+                                  B * P3P_FLOPS_PER_SET / F32_FLOPS_PER_S),
+        }
+    kernels.reset_launches()
+    res = {"by_batch": out, "vmap_8x512_equals_direct": vmap_ok,
+           "pnp_ransac_kernel_vs_plain": ransac, "launches": launches,
+           "launches_expected": launched, "times": times}
+    _say("[kernel] p3p " + json.dumps(res))
+    # bit for bit at 512 sets a call, the shape every single-stream path calls it at; a
+    # stack in one call is held to its calls one by one (the plain version's own sums
+    # round otherwise at a stack's row count, so its stacked column is only printed)
+    gated = {k: v for k, v in out.items() if k in minimal_sets.KINDS}
+    gated.update({f"{k}.one_call_each": v["one_call_each"] for k, v in out.items()
+                  if "one_call_each" in v})
+    faults = [f"{k}: {v['sets_bits_equal']} of the sets bit-equal, {v['ok_mismatches']} ok "
+              f"mismatches" for k, v in gated.items()
+              if v["sets_bits_equal"] != 1.0 or v["ok_mismatches"]]
+    faults += [f"pnp_ransac {tag}: {w}" for tag, w in ransac.items()
+               if w["R"] > P3P_RANSAC_TOL or w["t"] > P3P_RANSAC_TOL or w["n_inliers_differ"]]
+    if not vmap_ok:
+        faults.append("the vmapped 8 x 512 call differs from the direct call")
+    if launches != launched:
+        faults.append(f"{launches} p3p launches for {launched} calls on CUDA tensors")
+    if any(not v["batch_equals_one_call_each"] for v in out.values() if "one_call_each" in v):
+        faults.append("a stack gives other bits in one call than call by call")
+    if faults:
+        raise AssertionError("[kernel] p3p: " + "; ".join(faults))
+    t512 = times["scene"]
+    return {"name": "p3p", "route": "cuda", "source": "lcvo_tpu_torch/csrc/p3p.cu",
+            "replaces": "lcvo_tpu/ops/pnp.py:p3p_grunert (plain XLA, no Pallas kernel)",
+            "max_abs_err": max(max(v["R_gap_max"], v["t_gap_max"]) for v in gated.values()),
+            "ms": t512["kernel_ms"], "plain_ms": t512["plain_ms"], "bound_ms": t512["bound_ms"],
+            "bound_by": "operations (the limit is the 40-iteration dependent chain)",
+            "library_ms": None, "ms_8x512": times["scene_8x512"]["kernel_ms"],
+            "plain_ms_8x512": times["scene_8x512"]["plain_ms"]}
+
+
+def _hold_p3p(tag: str, vo) -> None:
+    """Raise unless the ``p3p`` launches since the counters were set to 0 are the PnP
+    calls of ``vo``'s run (its ``process_frame`` replays: the step runs PnP once), and
+    not 0."""
+    from lcvo_tpu_torch import kernels
+
+    n = kernels.LAUNCHES["p3p"]
+    calls = sum(g["replays"] for g in vo.graph_stats()["graphs"] if g["name"] == "process_frame")
+    if n != calls or not calls:
+        raise AssertionError(f"[{tag}] the P3P kernel launched {n} times for {calls} PnP "
+                             f"calls (process_frame replays)")
+
+
 def render(seq, n: int) -> np.ndarray:
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         frames = list(ex.map(seq.frame, range(n)))
@@ -1011,6 +1225,7 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     if launches["svd"] < SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]:
         raise AssertionError(f"[{tag}] the SVD launched {launches['svd']} times on the main "
                              f"path, < {SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]} of a bootstrap")
+    _hold_p3p(tag, vo)
     # marks: bootstrap end, the chunks, then the per-frame tail; the first chunk carries
     # first-call costs and is left out
     chunk_ends = [t for t, n in marks if n == CHUNK]
@@ -1757,6 +1972,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
+    _hold_p3p(tag, vo)
     segments = segments[1:] + [vo._frame_idx]
     est = np.asarray(traj)
     flags = np.asarray(vo.pose_ok_flags, bool)
@@ -1930,6 +2146,7 @@ def _stress_run(tag: str, cfg, K, frames, gt, ate_bound: float,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
+    _hold_p3p(tag, vo)
     est = np.asarray(traj)
     floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
     ate = ate_rmse(est, gt[gap: gap + len(est)]) if len(est) == n - gap else float("nan")
@@ -2046,6 +2263,7 @@ def longhorizon_phase(cfg) -> tuple[int, int]:
     wall = time.perf_counter() - t0
     peak["at_the_end"] = torch.cuda.max_memory_allocated() / 2**20
     launches = kernels.LAUNCHES["extract_blocks"]
+    _hold_p3p("longhorizon", vo)
     est = np.asarray(traj)
     gap = cfg.bootstrap.frame_gap
     gt = seq.gt_positions()[gap: gap + len(est)]
@@ -2819,6 +3037,9 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
             raise AssertionError(f"[streams] S={S}: launches {launches}: the batched path must "
                                  f"go through the layered entry only")
         launches_per_step[S] = launches["extract_blocks_layered"] / (n_chunks * CHUNK)
+        if launches["p3p"] != n_chunks * CHUNK:
+            raise AssertionError(f"[streams] S={S}: the P3P kernel launched {launches['p3p']} "
+                                 f"times in {n_chunks * CHUNK} batched steps: one a step")
         R0, t0 = vos[0]._host_pose()
         centers = np.concatenate([np.repeat(_stream_poses(R0, t0)[None, None], S, 0),
                                   _stream_poses(np.concatenate(Rs, 1), np.concatenate(ts, 1))], 1)
@@ -2837,6 +3058,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                "graphed_equals_eager": graph_eq,
                "launches": launches["extract_blocks_layered"],
                "launches_per_batched_step": launches_per_step[S],
+               "p3p_launches": launches["p3p"],
                "ate_m": ates, "pose_ok_rate": ok_rate.tolist()}
         if not graph_eq:
             raise AssertionError(f"[streams] S={S}: the graphed chunks left the eager ones: {row}")
@@ -3198,7 +3420,9 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     if differ:
         raise AssertionError(f"[dist] the streams chunk step through the mesh differs from the "
                              f"batched chunk step in {differ}")
-    if launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * STREAMS_CHUNKS * CHUNK:
+    steps = STREAMS_CHUNKS * CHUNK
+    if (launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * steps
+            or launches["p3p"] != steps):
         raise AssertionError(f"[dist] streams through the mesh launched {launches}")
     # the mesh step, its sum over ranks inside the graph on NCCL: from the streams'
     # states, one frame, the same keys at each call (the state copied in: the step
@@ -3218,6 +3442,7 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     _, res, agg = call()
     return {"streams": f"S={S} chunks={STREAMS_CHUNKS}x{CHUNK}", "streams_equal_to_batched": True,
             "streams_layered_launches": launches["extract_blocks_layered"],
+            "streams_p3p_launches": launches["p3p"],
             "mesh_step_sum_in_graph": True, "mesh_step_agg": {k: int(v) for k, v in agg.items()},
             "mesh_step_pose_ok": int(res.pose_ok.sum()), "mesh_step_graph": graph}
 
@@ -3266,6 +3491,7 @@ def dist_phase(cfg, seq, run_max: dict) -> dict:
             dist.destroy_process_group()
         out["world_one_nccl"] = one
         out["streams_mesh_launches"] = one["streams_layered_launches"]
+        out["streams_mesh_p3p_launches"] = one["streams_p3p_launches"]
         _say("[dist] world of one, nccl: " + json.dumps(one))
         two = _gloo_ranks_check(scene, match, kw)
         dry_out, _ = dry.communicate(timeout=DIST_RANK_TIMEOUT_S + 30)
@@ -3338,6 +3564,7 @@ def main() -> int:
     _say(f"[main] rendered {len(frames)} frames {frames.shape[1:]} uint8 in "
          f"{time.perf_counter() - t0:.1f} s")
     srow = svd_phase(cfg, ref_cfg, seq, frames)
+    prow = p3p_phase(cfg, turn_cfg, seq, frames)
     runs = {}      # each main path's graphed run, for [graphs]
     # default path: every frame pair goes through the tracker (6 launches), bootstrap
     # hops included. Reference path: 6 KLT + 6 SIFT launches per step, and the SIFT
@@ -3352,6 +3579,7 @@ def main() -> int:
     by_path = {"default": main["launches"]["extract_blocks"],
                "reference": ref["launches"]["extract_blocks"]}
     svd_by_path = {"default": main["launches"]["svd"], "reference": ref["launches"]["svd"]}
+    p3p_by_path = {"default": main["launches"]["p3p"], "reference": ref["launches"]["p3p"]}
     floors = {"default": main["min_launches"], "reference": ref["min_launches"]}
     poses = {}
     for tag, c, bound in (("throughput", thr_cfg, THR_ATE_BOUND_M),
@@ -3362,6 +3590,7 @@ def main() -> int:
             args.profile, n_frames=BA_FRAMES)
         by_path[tag] = out["launches"]["extract_blocks"]
         svd_by_path[tag] = out["launches"]["svd"]
+        p3p_by_path[tag] = out["launches"]["p3p"]
         floors[tag] = out["min_launches"]
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
     # [graphs]: each path's graphed run against its eager run, exactly
@@ -3386,6 +3615,7 @@ def main() -> int:
         path = mode.replace("-", "_").replace("+", "_")
         by_path[path], floors[path] = out["launches"]["extract_blocks"], out["min_launches"]
         svd_by_path[path] = out["launches"]["svd"]
+        p3p_by_path[path] = out["launches"]["p3p"]
     counted = {**recovery_phase(cfg, turn_cfg, seq, frames), **stress_phase(cfg),
                "longhorizon": longhorizon_phase(cfg)}
     render_phase(smi)
@@ -3421,13 +3651,18 @@ def main() -> int:
     srow["launches"] = sum(svd_by_path.values())
     srow["launches_by_path"] = svd_by_path
     skeys = keys[:12] + ("ms_by_site", "library_ms_by_site", "bound_ms_by_site")
+    p3p_by_path.update({f"streams_S{S}": r["p3p_launches"] for S, r in st["by_streams"].items()})
+    p3p_by_path[f"streams_mesh_S{max(STREAMS)}"] = dst["streams_mesh_p3p_launches"]
+    prow["launches"] = sum(p3p_by_path.values())
+    prow["launches_by_path"] = p3p_by_path
+    pkeys = keys[:12] + ("ms_8x512", "plain_ms_8x512")
     if _lockstep_faults or _segment_faults:
         raise AssertionError("[lockstep] bounds missed: " + "; ".join(_lockstep_faults)
                              + " [segments] " + "; ".join(_segment_faults))
     _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
          f"to the kernel line")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys},
-                                  {k: srow[k] for k in skeys}]}))
+                                  {k: srow[k] for k in skeys}, {k: prow[k] for k in pkeys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,14 +21,15 @@ import os
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = [os.path.join(CSRC, "extract_blocks.cu"), os.path.join(CSRC, "svd.cu")]
+SOURCES = [os.path.join(CSRC, n) for n in ("extract_blocks.cu", "svd.cu", "p3p.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "torch_ext")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
 # kernel entry -> launches since the last reset_launches(): the 2-D entry of
-# extract_blocks.cu, its layered entry (a stack of layers; the batched streams) and the
-# batched SVD of svd.cu
-LAUNCHES: dict[str, int] = {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0}
+# extract_blocks.cu, its layered entry (a stack of layers; the batched streams), the
+# batched SVD of svd.cu and the P3P solve of p3p.cu
+LAUNCHES: dict[str, int] = {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0,
+                            "p3p": 0}
 
 _lib = None
 
@@ -60,6 +61,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     # handle, params, A, m, n, batch, S, U, V, work, lwork, info, stream
     lib.lcvo_svd_gesvdj_batched.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp]
     lib.lcvo_svd_gesvdj_batched.restype = ci
+    # Pw, f, B, vinv, seed, R, t, ok, stream
+    lib.lcvo_p3p_f32.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp]
+    lib.lcvo_p3p_f32.restype = ci
 
 
 def _cusolver_ldflags() -> list[str]:

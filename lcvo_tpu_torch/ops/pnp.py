@@ -8,6 +8,12 @@ polish (port of ``lcvo_tpu/ops/pnp.py``).
 - Each of the ≤4 roots of every sample is a hypothesis; all are scored against all
   points at once (MSAC), then fixed-iteration Gauss-Newton polishes the winner.
 
+:func:`p3p_grunert` is the ``torch.library`` operator ``lcvo::p3p``: CUDA tensors launch
+``csrc/p3p.cu`` (the whole solve, Durand-Kerner loop included, in one launch; counted
+in ``kernels.LAUNCHES["p3p"]``), CPU tensors run :func:`p3p_grunert_plain`. Its batching
+rule folds a vmapped stream dimension into the batch of minimal sets, so the batched
+streams' step is one launch for all streams.
+
 Image measurements are normalized coordinates (K^-1 pixels); thresholds are pixel
 thresholds divided by fx.
 """
@@ -17,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lcvo_tpu_torch import kernels
 from lcvo_tpu_torch.core import geometry as geo
 from lcvo_tpu_torch.core.constants import on_device as _const
 from lcvo_tpu_torch.ops import ransac
@@ -90,9 +97,9 @@ def _triad_align(Pc: torch.Tensor, Pw: torch.Tensor):
     return R, t
 
 
-def p3p_grunert(Pw: torch.Tensor, f: torch.Tensor):
-    """Grunert P3P: world points Pw (..., 3, 3) + unit bearings f (..., 3, 3)
-    → up to 4 poses. Returns (R (..., 4, 3, 3), t (..., 4, 3), ok (..., 4))."""
+def p3p_grunert_plain(Pw: torch.Tensor, f: torch.Tensor):
+    """Grunert P3P, plain PyTorch: world points Pw (..., 3, 3) + unit bearings
+    f (..., 3, 3) → up to 4 poses. Returns (R (..., 4, 3, 3), t (..., 4, 3), ok (..., 4))."""
     P1, P2, P3 = Pw[..., 0, :], Pw[..., 1, :], Pw[..., 2, :]
     f1, f2, f3 = f[..., 0, :], f[..., 1, :], f[..., 2, :]
     a2 = torch.sum((P2 - P3) ** 2, -1)
@@ -142,6 +149,65 @@ def p3p_grunert(Pw: torch.Tensor, f: torch.Tensor):
     Pw4 = Pw[..., None, :, :].expand(Pc.shape)
     R, t = _triad_align(Pc, Pw4)
     return R, t, root_ok & depth_ok
+
+
+def p3p_grunert(Pw: torch.Tensor, f: torch.Tensor):
+    """Grunert P3P: world points Pw (..., 3, 3) + unit bearings f (..., 3, 3), f32, one
+    device → up to 4 poses. Returns (R (..., 4, 3, 3), t (..., 4, 3), ok (..., 4)).
+
+    CUDA tensors go through ``csrc/p3p.cu`` (one launch for any batch shape), CPU
+    tensors through :func:`p3p_grunert_plain`."""
+    if Pw.device != f.device:
+        raise ValueError(f"p3p: Pw on {Pw.device}, f on {f.device}: both must be on one device")
+    if Pw.dtype != torch.float32 or f.dtype != torch.float32:
+        raise TypeError(f"p3p takes f32 points and bearings, got {Pw.dtype} and {f.dtype}")
+    if Pw.dim() < 2 or Pw.shape[-2:] != (3, 3) or f.shape != Pw.shape:
+        raise ValueError(f"p3p: Pw and f must both be (..., 3, 3), got {tuple(Pw.shape)} and "
+                         f"{tuple(f.shape)}")
+    return torch.ops.lcvo.p3p(Pw, f)
+
+
+@torch.library.custom_op("lcvo::p3p", mutates_args=(), device_types="cpu")
+def _p3p_op(Pw: torch.Tensor, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return p3p_grunert_plain(Pw, f)
+
+
+@_p3p_op.register_kernel("cuda")
+def _p3p_cuda(Pw, f):
+    """Launch ``csrc/p3p.cu`` once over every minimal set of the batch."""
+    batch = Pw.shape[:-2]
+    B = Pw.numel() // 9
+    R = torch.empty(batch + (4, 3, 3), dtype=torch.float32, device=Pw.device)
+    t = torch.empty(batch + (4, 3), dtype=torch.float32, device=Pw.device)
+    ok = torch.empty(batch + (4,), dtype=torch.bool, device=Pw.device)
+    if B == 0:
+        return R, t, ok
+    if B >= 2 ** 29:
+        raise ValueError(f"p3p kernel indexes its threads with 32 bits, got {B} minimal sets")
+    lib = kernels.library()
+    Pw = Pw.contiguous()
+    f = f.contiguous()
+    vinv = _const(_VANDERMONDE_INV, Pw.device)
+    seed = _const(_DK_SEED, Pw.device)
+    with torch.cuda.device(Pw.device):
+        stream = torch.cuda.current_stream(Pw.device).cuda_stream
+        code = lib.lcvo_p3p_f32(Pw.data_ptr(), f.data_ptr(), B, vinv.data_ptr(),
+                                seed.data_ptr(), R.data_ptr(), t.data_ptr(), ok.data_ptr(),
+                                stream)
+    kernels.check(code, "p3p")
+    kernels.LAUNCHES["p3p"] += 1
+    return R, t, ok
+
+
+def _p3p_vmap(info, in_dims, Pw, f):
+    """B calls are one call on the stacked batch; an unbatched argument is broadcast."""
+    B = info.batch_size
+    Pw = Pw.expand((B,) + Pw.shape) if in_dims[0] is None else Pw.movedim(in_dims[0], 0)
+    f = f.expand((B,) + f.shape) if in_dims[1] is None else f.movedim(in_dims[1], 0)
+    return torch.ops.lcvo.p3p(Pw, f), (0, 0, 0)
+
+
+torch.library.register_vmap("lcvo::p3p", _p3p_vmap)
 
 
 def reproj_sq_error(R, t, X, x_obs):
