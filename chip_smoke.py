@@ -59,6 +59,18 @@ Phases (any failure raises and the script exits non-zero; nothing is caught):
    ``P3P_RANSAC_TOL``, the same inlier count); kernel and plain times replayed in a CUDA
    graph beside the kernel's bound. The main paths below hold their ``p3p`` launches to
    their PnP calls: one a ``process_frame`` replay, one a batched streams step.
+   Then ``[kernel] klt_iterate``: the KLT level kernel (``csrc/klt_iterate.cu``) against
+   its plain tail (``ops/klt.py::_iterate_level_plain``) on every level that the default
+   (window 15), reference (window 21) and ``turn_robust`` paths make in an eager run of
+   their first ``KLT_RECORD_FRAMES`` frames, with f32 blocks and an f32 or a bf16 loop and
+   with bf16 blocks: the largest and median |delta d|, the status agreement, the
+   residual gap and the bit-equal shares; raises unless every call gives the plain
+   tail's bits. A call twice and a stack of 3 through ``torch.func.vmap`` give the same
+   bits; one launch and the plain tail timed, replayed in a CUDA graph, beside the bound.
+   The main, mode, recovery, stress and longhorizon paths hold their ``klt_iterate``
+   launches to their KLT levels (the tracked levels of each ``process_frame`` replay, all
+   levels of each ``track_pair`` replay), the streams paths to the tracked levels of
+   each batched step.
 4. Main paths, on the same 42 synthetic corridor frames at 1240x376, each with the
    launch counters set to 0 just before and read just after, each through
    ``VisualOdometry(cfg, K, device="cuda").run_chunked(frames, chunk=16)`` (bootstrap,
@@ -354,6 +366,25 @@ P3P_RANSAC_TOL = 1e-4
 P3P_FLOPS_PER_SET = 40 * 4 * 76 + 200 + 700
 # bytes a set reads (Pw, f) and writes (R, t, ok)
 P3P_BYTES_PER_SET = 2 * 9 * 4 + 4 * (9 + 3) * 4 + 4
+# [kernel] klt_iterate: the driven paths' own KLT levels come from an eager run of this
+# many frames (bootstrap and 5 steps); on each, at each storage dtype, the kernel is held
+# to the plain tail: the track's status (det_ok, not saturated, residual under the
+# path's max_residual) the same on at least KLT_STATUS_MIN of the tracks, the median
+# |d_kernel - d_plain| (px of the level) at most KLT_MEDIAN_DD, and every bit of d,
+# det_ok, sat and residual equal.
+KLT_RECORD_FRAMES = 12
+KLT_STATUS_MIN = 0.995
+KLT_MEDIAN_DD = 1e-4
+
+
+def klt_flops_per_track(w: int, iters: int) -> int:
+    """Operations of one track of a ``klt_iterate`` call, counted from csrc/klt_iterate.cu:
+    the (w+2)^2 template samples (6 each), the gradients and three Hessian products and
+    sums (8 a term), and per iteration and the final sample 6 for the sample, 1 for the
+    error and 4 for the two products and sums a term."""
+    return 6 * (w + 2) ** 2 + 8 * w * w + (iters + 1) * 11 * w * w
+
+
 # The three candidate modes of bench.py that no earlier phase runs, as bench.py builds
 # them (the VOConfig defaults with find_new_candidates_method set; "+ba" turns window BA
 # on at its defaults): sift-mask and harris-mask on N_FRAMES frames, shi-mask+ba on
@@ -1039,17 +1070,176 @@ def p3p_phase(cfg, turn_cfg, seq, frames) -> dict:
             "plain_ms_8x512": times["scene_8x512"]["plain_ms"]}
 
 
-def _hold_p3p(tag: str, vo) -> None:
+def _hold_launches(tag: str, vo) -> None:
     """Raise unless the ``p3p`` launches since the counters were set to 0 are the PnP
     calls of ``vo``'s run (its ``process_frame`` replays: the step runs PnP once), and
-    not 0."""
+    not 0, and the ``klt_iterate`` launches are its KLT levels: the tracked levels of
+    every ``process_frame`` replay and all levels of every ``track_pair`` replay (a
+    bootstrap hop)."""
     from lcvo_tpu_torch import kernels
 
+    graphs = vo.graph_stats()["graphs"]
     n = kernels.LAUNCHES["p3p"]
-    calls = sum(g["replays"] for g in vo.graph_stats()["graphs"] if g["name"] == "process_frame")
+    calls = sum(g["replays"] for g in graphs if g["name"] == "process_frame")
     if n != calls or not calls:
         raise AssertionError(f"[{tag}] the P3P kernel launched {n} times for {calls} PnP "
                              f"calls (process_frame replays)")
+    klt = vo.cfg.klt
+    levels = calls * (klt.track_levels or klt.levels) + klt.levels * sum(
+        g["replays"] for g in graphs if g["name"] == "track_pair")
+    if kernels.LAUNCHES["klt_iterate"] != levels:
+        raise AssertionError(f"[{tag}] klt_iterate launched {kernels.LAUNCHES['klt_iterate']} "
+                             f"times for {levels} KLT levels")
+
+
+def _recorded_klt(cfg, seq, frames, n_frames: int) -> list:
+    """Every ``klt_iterate`` call (its arguments, cloned) of an eager run of ``cfg`` over
+    the first ``n_frames`` frames."""
+    import torch
+
+    from lcvo_tpu_torch.ops import klt
+    from lcvo_tpu_torch.pipeline import VisualOdometry
+    from lcvo_tpu_torch.utils.graphs import disable_graphs
+
+    calls = []
+    real = klt.klt_iterate
+
+    def rec(*a):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return real(*a)
+
+    klt.klt_iterate = rec
+    try:
+        with disable_graphs():
+            VisualOdometry(cfg, seq.K, device="cuda").run_chunked(frames[:n_frames], chunk=CHUNK)
+    finally:
+        klt.klt_iterate = real
+    return calls
+
+
+def _klt_compare(got, want, max_residual: float) -> dict:
+    """The kernel's (d, det_ok, sat, residual) against the plain tail's: |delta d| where
+    both are finite, the status agreement, the residual gap, the bit-equal shares."""
+    (d, ok, sat, res), (dp, okp, satp, resp) = got, want
+
+    def same(a, b):
+        return (a == b) | (a.isnan() & b.isnan())
+
+    fin = d.isfinite().all(-1) & dp.isfinite().all(-1)
+    dd = (d - dp).abs().amax(-1)[fin]
+    status, status_p = ok & ~sat & (res < max_residual), okp & ~satp & (resp < max_residual)
+    rfin = res.isfinite() & resp.isfinite()
+    return {"tracks": int(d.shape[0]), "dd_max": float(dd.max()) if dd.numel() else 0.0,
+            "dd_median": float(dd.median()) if dd.numel() else 0.0,
+            "status_agree": float((status == status_p).float().mean()),
+            "det_ok_mismatches": int((ok != okp).sum()), "sat_mismatches": int((sat != satp).sum()),
+            "residual_gap_max": float((res - resp).abs()[rfin].max()) if rfin.any() else 0.0,
+            "d_bits_equal": float(same(d, dp).all(-1).float().mean()),
+            "residual_bits_equal": float(same(res, resp).float().mean()),
+            "nan_mismatches": int((d.isnan().any(-1) != dp.isnan().any(-1)).sum())}
+
+
+def klt_phase(cfg, ref_cfg, turn_cfg, seq, frames) -> dict:
+    """``[kernel] klt_iterate``: the KLT level kernel against its plain tail on the card,
+    on every level the default (window 15), reference (window 21) and turn_robust paths
+    made in an eager run of their first ``KLT_RECORD_FRAMES`` frames, with f32 blocks
+    and an f32 and a bf16 loop, and with the blocks in bf16. Raises on a status
+    agreement under ``KLT_STATUS_MIN``, a median |delta d| over ``KLT_MEDIAN_DD`` or any
+    bit apart in any group. Returns the kernel table's row."""
+    import torch
+
+    from lcvo_tpu_torch import kernels
+    from lcvo_tpu_torch.ops import klt
+
+    recorded = {tag: (c, _recorded_klt(c, seq, frames, KLT_RECORD_FRAMES))
+                for tag, c in (("default", cfg), ("reference", ref_cfg),
+                               ("turn_robust", turn_cfg))}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    launched = 0
+    out, faults = {}, []
+    for tag, (c, calls) in recorded.items():
+        for blocks, idt in (("f32", torch.float32), ("f32", torch.bfloat16),
+                            ("bf16", torch.bfloat16)):
+            name = f"{tag}.blocks_{blocks}.iter_{str(idt).split('.')[-1]}"
+            rows = []
+            for a in calls:
+                tb, to, nb, no, pts, d, w, iters, eps = a[:9]
+                if blocks == "bf16":
+                    tb, nb = tb.bfloat16(), nb.bfloat16()
+                args = (tb, to, nb, no, pts, d, w, iters, eps, idt)
+                got = klt.klt_iterate(*args)
+                launched += 1
+                rows.append(_klt_compare(got, klt._iterate_level_plain(*args),
+                                         c.klt.max_residual))
+            agg = {"calls": len(rows), "window": calls[0][6],
+                   "dd_max": max(r["dd_max"] for r in rows),
+                   "dd_median": statistics.median(r["dd_median"] for r in rows),
+                   "status_agree_min": min(r["status_agree"] for r in rows),
+                   "residual_gap_max": max(r["residual_gap_max"] for r in rows),
+                   "d_bits_equal_min": min(r["d_bits_equal"] for r in rows),
+                   "d_bits_equal_mean": statistics.mean(r["d_bits_equal"] for r in rows),
+                   "residual_bits_equal_min": min(r["residual_bits_equal"] for r in rows),
+                   "det_ok_mismatches": sum(r["det_ok_mismatches"] for r in rows),
+                   "sat_mismatches": sum(r["sat_mismatches"] for r in rows),
+                   "nan_mismatches": sum(r["nan_mismatches"] for r in rows)}
+            out[name] = agg
+            if agg["status_agree_min"] < KLT_STATUS_MIN or agg["dd_median"] > KLT_MEDIAN_DD:
+                faults.append(f"{name}: status agreement {agg['status_agree_min']}, median "
+                              f"|delta d| {agg['dd_median']} px")
+            # the kernel sums in the order of PyTorch's reduce kernel at these shapes, so
+            # it gives the plain tail's bits
+            if (agg["d_bits_equal_min"] != 1.0 or agg["residual_bits_equal_min"] != 1.0
+                    or agg["det_ok_mismatches"] or agg["sat_mismatches"]):
+                faults.append(f"{name}: not the plain tail's bits ({agg})")
+    # the same call twice, and through torch.func.vmap as a stack of 3, gives the same bits
+    a = recorded["default"][1][-1]
+    one = klt.klt_iterate(*a)
+    again = klt.klt_iterate(*a)
+    stacked = torch.func.vmap(lambda *t: klt.klt_iterate(*t, *a[6:]))(
+        *(x[None].expand(3, *x.shape) for x in a[:6]))
+    launched += 3
+    repeat_ok = all(torch.equal(x, y) for x, y in zip(one, again))
+    vmap_ok = all(torch.equal(x[None].expand_as(y), y) for x, y in zip(one, stacked))
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["klt_iterate"]
+
+    times = {}
+    for tag in ("default", "reference", "turn_robust"):
+        c, calls = recorded[tag]
+        # the step's call with the most tracks, iterations and the largest target block
+        a = max(calls, key=lambda x: (x[0].shape[0], x[7], x[2].shape[1]))
+        tb, nb, w, iters, N = a[0], a[2], a[6], a[7], a[0].shape[0]
+        nbytes = (tb.numel() + nb.numel()) * tb.element_size() + N * (4 * 2 * 4 + 2 * 4 + 2 + 4)
+        times[tag] = {"tracks": N, "window": w, "S_t": tb.shape[1], "S": nb.shape[1],
+                      "iters": iters,
+                      "kernel_ms": graph_ms(lambda: klt.klt_iterate(*a)),
+                      "plain_ms": graph_ms(lambda: klt._iterate_level_plain(*a), inner=5, reps=7),
+                      "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                            N * klt_flops_per_track(w, iters) / F32_FLOPS_PER_S)}
+        # the same call with no iteration: the template, Hessian and final sample alone
+        times[tag]["kernel_ms_no_iteration"] = graph_ms(
+            lambda: klt.klt_iterate(*a[:7], 0, *a[8:]))
+    kernels.reset_launches()
+    res = {"by_path": out, "repeat_bits_equal": repeat_ok, "vmap_3_equals_direct": vmap_ok,
+           "launches": launches, "launches_expected": launched, "times": times}
+    _say("[kernel] klt_iterate " + json.dumps(res))
+    if not repeat_ok:
+        faults.append("two calls on the same inputs gave other bits")
+    if not vmap_ok:
+        faults.append("the vmapped stack of 3 differs from the direct call")
+    if launches != launched:
+        faults.append(f"{launches} klt_iterate launches for {launched} calls on CUDA tensors")
+    if faults:
+        raise AssertionError("[kernel] klt_iterate: " + "; ".join(faults))
+    t = times["default"]
+    return {"name": "klt_iterate", "route": "cuda", "source": "lcvo_tpu_torch/csrc/klt_iterate.cu",
+            "replaces": "lcvo_tpu/ops/klt.py:_track_level after its extractions (plain XLA)",
+            "max_abs_err": max(v["dd_max"] for v in out.values()),
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "neither (the limit is each track's iteration chain)",
+            "library_ms": None, "ms_window_21": times["reference"]["kernel_ms"],
+            "plain_ms_window_21": times["reference"]["plain_ms"]}
 
 
 def render(seq, n: int) -> np.ndarray:
@@ -1225,7 +1415,7 @@ def main_path_phase(tag: str, cfg, seq, frames, ate_bound: float, min_launches: 
     if launches["svd"] < SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]:
         raise AssertionError(f"[{tag}] the SVD launched {launches['svd']} times on the main "
                              f"path, < {SVD_PER_BOOTSTRAP[cfg.ransac.e_solver]} of a bootstrap")
-    _hold_p3p(tag, vo)
+    _hold_launches(tag, vo)
     # marks: bootstrap end, the chunks, then the per-frame tail; the first chunk carries
     # first-call costs and is left out
     chunk_ends = [t for t, n in marks if n == CHUNK]
@@ -1972,7 +2162,7 @@ def _recovery_run(tag: str, cfg, seq, frames, jax: tuple, chunked: bool) -> tupl
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
-    _hold_p3p(tag, vo)
+    _hold_launches(tag, vo)
     segments = segments[1:] + [vo._frame_idx]
     est = np.asarray(traj)
     flags = np.asarray(vo.pose_ok_flags, bool)
@@ -2146,7 +2336,7 @@ def _stress_run(tag: str, cfg, K, frames, gt, ate_bound: float,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["extract_blocks"]
-    _hold_p3p(tag, vo)
+    _hold_launches(tag, vo)
     est = np.asarray(traj)
     floor = _launch_floor(cfg, 0, 0, extra_hops=n - 1)
     ate = ate_rmse(est, gt[gap: gap + len(est)]) if len(est) == n - gap else float("nan")
@@ -2263,7 +2453,7 @@ def longhorizon_phase(cfg) -> tuple[int, int]:
     wall = time.perf_counter() - t0
     peak["at_the_end"] = torch.cuda.max_memory_allocated() / 2**20
     launches = kernels.LAUNCHES["extract_blocks"]
-    _hold_p3p("longhorizon", vo)
+    _hold_launches("longhorizon", vo)
     est = np.asarray(traj)
     gap = cfg.bootstrap.frame_gap
     gt = seq.gt_positions()[gap: gap + len(est)]
@@ -2986,6 +3176,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
     dev = torch.device("cuda")
     gap = cfg.bootstrap.frame_gap
     n_chunks = STREAMS_CHUNKS
+    klt_levels = cfg.klt.track_levels or cfg.klt.levels
     S_max = max(STREAMS)
     vos = []
     for _ in range(S_max):
@@ -3040,6 +3231,10 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
         if launches["p3p"] != n_chunks * CHUNK:
             raise AssertionError(f"[streams] S={S}: the P3P kernel launched {launches['p3p']} "
                                  f"times in {n_chunks * CHUNK} batched steps: one a step")
+        if launches["klt_iterate"] != klt_levels * n_chunks * CHUNK:
+            raise AssertionError(f"[streams] S={S}: klt_iterate launched "
+                                 f"{launches['klt_iterate']} times in {n_chunks * CHUNK} "
+                                 f"batched steps: one a tracked level a step")
         R0, t0 = vos[0]._host_pose()
         centers = np.concatenate([np.repeat(_stream_poses(R0, t0)[None, None], S, 0),
                                   _stream_poses(np.concatenate(Rs, 1), np.concatenate(ts, 1))], 1)
@@ -3059,6 +3254,7 @@ def streams_phase(cfg, seq, frames, profile_dir: str | None) -> tuple[dict, dict
                "launches": launches["extract_blocks_layered"],
                "launches_per_batched_step": launches_per_step[S],
                "p3p_launches": launches["p3p"],
+               "klt_iterate_launches": launches["klt_iterate"],
                "ate_m": ates, "pose_ok_rate": ok_rate.tolist()}
         if not graph_eq:
             raise AssertionError(f"[streams] S={S}: the graphed chunks left the eager ones: {row}")
@@ -3421,8 +3617,9 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
         raise AssertionError(f"[dist] the streams chunk step through the mesh differs from the "
                              f"batched chunk step in {differ}")
     steps = STREAMS_CHUNKS * CHUNK
+    klt_levels = cfg.klt.track_levels or cfg.klt.levels
     if (launches["extract_blocks"] != 0 or launches["extract_blocks_layered"] != 12 * steps
-            or launches["p3p"] != steps):
+            or launches["p3p"] != steps or launches["klt_iterate"] != klt_levels * steps):
         raise AssertionError(f"[dist] streams through the mesh launched {launches}")
     # the mesh step, its sum over ranks inside the graph on NCCL: from the streams'
     # states, one frame, the same keys at each call (the state copied in: the step
@@ -3443,6 +3640,7 @@ def _world_of_one_streams(cfg, seq, run_max: dict, mesh, dev) -> dict:
     return {"streams": f"S={S} chunks={STREAMS_CHUNKS}x{CHUNK}", "streams_equal_to_batched": True,
             "streams_layered_launches": launches["extract_blocks_layered"],
             "streams_p3p_launches": launches["p3p"],
+            "streams_klt_iterate_launches": launches["klt_iterate"],
             "mesh_step_sum_in_graph": True, "mesh_step_agg": {k: int(v) for k, v in agg.items()},
             "mesh_step_pose_ok": int(res.pose_ok.sum()), "mesh_step_graph": graph}
 
@@ -3492,6 +3690,7 @@ def dist_phase(cfg, seq, run_max: dict) -> dict:
         out["world_one_nccl"] = one
         out["streams_mesh_launches"] = one["streams_layered_launches"]
         out["streams_mesh_p3p_launches"] = one["streams_p3p_launches"]
+        out["streams_mesh_klt_iterate_launches"] = one["streams_klt_iterate_launches"]
         _say("[dist] world of one, nccl: " + json.dumps(one))
         two = _gloo_ranks_check(scene, match, kw)
         dry_out, _ = dry.communicate(timeout=DIST_RANK_TIMEOUT_S + 30)
@@ -3565,6 +3764,7 @@ def main() -> int:
          f"{time.perf_counter() - t0:.1f} s")
     srow = svd_phase(cfg, ref_cfg, seq, frames)
     prow = p3p_phase(cfg, turn_cfg, seq, frames)
+    krow = klt_phase(cfg, ref_cfg, turn_cfg, seq, frames)
     runs = {}      # each main path's graphed run, for [graphs]
     # default path: every frame pair goes through the tracker (6 launches), bootstrap
     # hops included. Reference path: 6 KLT + 6 SIFT launches per step, and the SIFT
@@ -3580,6 +3780,8 @@ def main() -> int:
                "reference": ref["launches"]["extract_blocks"]}
     svd_by_path = {"default": main["launches"]["svd"], "reference": ref["launches"]["svd"]}
     p3p_by_path = {"default": main["launches"]["p3p"], "reference": ref["launches"]["p3p"]}
+    klt_by_path = {"default": main["launches"]["klt_iterate"],
+                   "reference": ref["launches"]["klt_iterate"]}
     floors = {"default": main["min_launches"], "reference": ref["min_launches"]}
     poses = {}
     for tag, c, bound in (("throughput", thr_cfg, THR_ATE_BOUND_M),
@@ -3591,6 +3793,7 @@ def main() -> int:
         by_path[tag] = out["launches"]["extract_blocks"]
         svd_by_path[tag] = out["launches"]["svd"]
         p3p_by_path[tag] = out["launches"]["p3p"]
+        klt_by_path[tag] = out["launches"]["klt_iterate"]
         floors[tag] = out["min_launches"]
         rate_without_ba(f"main:{tag}:ba_off", c, seq, frames, BA_FRAMES)
     # [graphs]: each path's graphed run against its eager run, exactly
@@ -3616,6 +3819,7 @@ def main() -> int:
         by_path[path], floors[path] = out["launches"]["extract_blocks"], out["min_launches"]
         svd_by_path[path] = out["launches"]["svd"]
         p3p_by_path[path] = out["launches"]["p3p"]
+        klt_by_path[path] = out["launches"]["klt_iterate"]
     counted = {**recovery_phase(cfg, turn_cfg, seq, frames), **stress_phase(cfg),
                "longhorizon": longhorizon_phase(cfg)}
     render_phase(smi)
@@ -3656,13 +3860,20 @@ def main() -> int:
     prow["launches"] = sum(p3p_by_path.values())
     prow["launches_by_path"] = p3p_by_path
     pkeys = keys[:12] + ("ms_8x512", "plain_ms_8x512")
+    klt_by_path.update({f"streams_S{S}": r["klt_iterate_launches"]
+                        for S, r in st["by_streams"].items()})
+    klt_by_path[f"streams_mesh_S{max(STREAMS)}"] = dst["streams_mesh_klt_iterate_launches"]
+    krow["launches"] = sum(klt_by_path.values())
+    krow["launches_by_path"] = klt_by_path
+    kkeys = keys[:12] + ("ms_window_21", "plain_ms_window_21")
     if _lockstep_faults or _segment_faults:
         raise AssertionError("[lockstep] bounds missed: " + "; ".join(_lockstep_faults)
                              + " [segments] " + "; ".join(_segment_faults))
     _say(f"[wall] chip_smoke.py: {time.perf_counter() - t_script:.1f} s from the device check "
          f"to the kernel line")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}, {k: lrow[k] for k in lkeys},
-                                  {k: srow[k] for k in skeys}, {k: prow[k] for k in pkeys}]}))
+                                  {k: srow[k] for k in skeys}, {k: prow[k] for k in pkeys},
+                                  {k: krow[k] for k in kkeys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

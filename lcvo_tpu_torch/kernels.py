@@ -5,7 +5,10 @@ takes seconds, not minutes). ``torch.utils.cpp_extension.load`` compiles them fo
 ``sm_90a`` into ``<repo>/build/torch_ext`` on first use; the library is then opened
 with ``ctypes`` and each kernel is called with raw device pointers on PyTorch's current
 stream. ``csrc/svd.cu`` calls cuSOLVER, and the library links the cuSOLVER that torch's
-own linear algebra loads (:func:`_cusolver_ldflags`).
+own linear algebra loads (:func:`_cusolver_ldflags`). The sources (:data:`SOURCES`):
+``extract_blocks.cu`` (KLT's and SIFT's blocks), ``svd.cu`` (the batched SVD route),
+``p3p.cu`` (the P3P solve) and ``klt_iterate.cu`` (a KLT level after its extractions:
+template, Hessian, every iteration and the residual).
 
 There is no fallback: if the build, the load or a launch fails, the call raises.
 Every wrapper adds one to its entry of :data:`LAUNCHES` where it launches its kernel,
@@ -21,15 +24,17 @@ import os
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = [os.path.join(CSRC, n) for n in ("extract_blocks.cu", "svd.cu", "p3p.cu")]
+SOURCES = [os.path.join(CSRC, n) for n in ("extract_blocks.cu", "svd.cu", "p3p.cu",
+                                            "klt_iterate.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "torch_ext")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
 # kernel entry -> launches since the last reset_launches(): the 2-D entry of
 # extract_blocks.cu, its layered entry (a stack of layers; the batched streams), the
-# batched SVD of svd.cu and the P3P solve of p3p.cu
+# batched SVD of svd.cu, the P3P solve of p3p.cu and a KLT level's iterations of
+# klt_iterate.cu
 LAUNCHES: dict[str, int] = {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0,
-                            "p3p": 0}
+                            "p3p": 0, "klt_iterate": 0}
 
 _lib = None
 
@@ -64,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     # Pw, f, B, vinv, seed, R, t, ok, stream
     lib.lcvo_p3p_f32.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp]
     lib.lcvo_p3p_f32.restype = ci
+    # tblocks, torig, nblocks, norig, pts, d, N, w, St, S, iters, eps2, bf16_blocks,
+    # bf16_iter, d_out, det_ok, sat, residual, stream
+    lib.lcvo_klt_iterate.argtypes = [vp] * 6 + [ci] * 5 + [ctypes.c_float, ci, ci] + [vp] * 5
+    lib.lcvo_klt_iterate.restype = ci
 
 
 def _cusolver_ldflags() -> list[str]:

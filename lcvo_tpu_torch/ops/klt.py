@@ -12,12 +12,21 @@ track,
 where R_y/C_x are (w, S) two-tap bilinear matrices built from the subpixel offset.
 Tracks whose displacement wanders outside the per-level block margin are clamped and
 flagged through the status gates, as in the JAX package.
+
+A level is three launches on the card: the two extractions and :func:`klt_iterate`, the
+``torch.library`` operator ``lcvo::klt_iterate``. CUDA tensors launch
+``csrc/klt_iterate.cu`` (the template, its Hessian, every iteration and the residual of
+all tracks in one launch; counted in ``kernels.LAUNCHES["klt_iterate"]``), CPU tensors
+run :func:`_iterate_level_plain`, the interpolation products above in PyTorch. Its batching
+rule folds a vmapped stream dimension into the tracks, so the batched streams' step is
+one launch a level for all streams.
 """
 
 from __future__ import annotations
 
 import torch
 
+from lcvo_tpu_torch import kernels
 # (N, S, S) integer-aligned blocks around centers (x, y) and their clamped origins:
 # the hand-written CUDA kernel for CUDA tensors, its plain version for CPU tensors
 from lcvo_tpu_torch.ops.klt_extract import extract_blocks as _extract_blocks
@@ -56,7 +65,6 @@ def _track_level(prev_img, next_img, pts_l, d, window, iters, eps,
     Returns (d, det_ok, sat, residual); residual is the mean |error| of the final
     patch."""
     w = window
-    r = (w - 1) // 2
     S = w + 2 + 2 * margin     # target block: sampling span + wander margin
     S_t = w + 2 + 2 * 2        # template block: sampled once, bilinear + gradient slack
     # blocks of the images edge-replicated by p, so a block fits around any in-image
@@ -64,6 +72,17 @@ def _track_level(prev_img, next_img, pts_l, d, window, iters, eps,
     p = (S + 1) // 2
     tblocks, torig = _extract_blocks(prev_img, pts_l, S_t, pad=p)
     nblocks, norig = _extract_blocks(next_img, pts_l + d, S, pad=p)
+    return klt_iterate(tblocks, torig, nblocks, norig, pts_l, d, w, iters, eps, iter_dtype)
+
+
+def _iterate_level_plain(tblocks, torig, nblocks, norig, pts_l, d, window, iters, eps,
+                         iter_dtype=torch.float32):
+    """Plain PyTorch version of :func:`klt_iterate`: the template and its Hessian from
+    the template blocks, ``iters`` IC-LK iterations on the target blocks, the final
+    residual and saturation flag."""
+    w = window
+    r = (w - 1) // 2
+    S = nblocks.shape[-1]
 
     # template + central-difference gradients from one (w+2)-sized sample
     qt = pts_l - torig
@@ -107,6 +126,104 @@ def _track_level(prev_img, next_img, pts_l, d, window, iters, eps,
     # a displacement pinned at the block boundary wanted to leave the search region
     sat = torch.any((d <= dd_min + 1e-3) | (d >= dd_max - 1e-3), dim=-1)
     return d, det_ok, sat, residual
+
+
+def klt_iterate(tblocks, torig, nblocks, norig, pts_l, d, window: int, iters: int, eps: float,
+                iter_dtype=torch.float32):
+    """Everything one pyramid level does after its two block extractions, for N tracks.
+
+    ``tblocks`` (N, S_t, S_t) and ``nblocks`` (N, S, S): the template and target blocks
+    (f32 or bf16, one dtype), ``torig`` / ``norig`` (N, 2) their origins, ``pts_l`` and
+    ``d`` (N, 2) the points and incoming displacements in this level's pixels, all f32
+    but the blocks. ``window`` odd, with S_t and S at least ``window + 2``. Returns
+    (d (N, 2), det_ok (N,), sat (N,), residual (N,)).
+
+    CUDA tensors launch ``csrc/klt_iterate.cu`` (one launch; windows up to 31, blocks
+    up to 128), CPU tensors run :func:`_iterate_level_plain`."""
+    tensors = (tblocks, torig, nblocks, norig, pts_l, d)
+    if any(t.device != tblocks.device for t in tensors):
+        raise ValueError("klt_iterate: tensors on " + ", ".join(str(t.device) for t in tensors)
+                         + ": all must be on one device")
+    if tblocks.dtype not in (torch.float32, torch.bfloat16) or nblocks.dtype != tblocks.dtype:
+        raise TypeError(f"klt_iterate takes f32 or bf16 blocks of one dtype, got "
+                        f"{tblocks.dtype} and {nblocks.dtype}")
+    if any(t.dtype != torch.float32 for t in (torig, norig, pts_l, d)):
+        raise TypeError("klt_iterate takes f32 origins, points and displacements")
+    idt = getattr(torch, iter_dtype) if isinstance(iter_dtype, str) else iter_dtype
+    if idt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"klt_iterate iterates in f32 or bf16, got {iter_dtype}")
+    N = pts_l.shape[0] if pts_l.dim() == 2 else -1
+    if (tblocks.dim() != 3 or nblocks.dim() != 3 or tblocks.shape[1] != tblocks.shape[2]
+            or nblocks.shape[1] != nblocks.shape[2] or N < 0
+            or any(t.shape != (N, 2) for t in (torig, norig, pts_l, d))
+            or tblocks.shape[0] != N or nblocks.shape[0] != N):
+        raise ValueError(f"klt_iterate: blocks (N, S, S) and (N, 2) origins, points and "
+                         f"displacements, got {[tuple(t.shape) for t in tensors]}")
+    if window < 1 or window % 2 == 0 or min(tblocks.shape[1], nblocks.shape[1]) < window + 2:
+        raise ValueError(f"klt_iterate: window {window} must be odd and fit blocks of "
+                         f"{tblocks.shape[1]} and {nblocks.shape[1]} with a sample to spare")
+    if iters < 0:
+        raise ValueError(f"klt_iterate: iters must be >= 0, got {iters}")
+    return torch.ops.lcvo.klt_iterate(tblocks, torig, nblocks, norig, pts_l, d, window, iters,
+                                      float(eps), idt)
+
+
+@torch.library.custom_op("lcvo::klt_iterate", mutates_args=(), device_types="cpu")
+def _klt_iterate_op(tblocks: torch.Tensor, torig: torch.Tensor, nblocks: torch.Tensor,
+                    norig: torch.Tensor, pts_l: torch.Tensor, d: torch.Tensor, window: int,
+                    iters: int, eps: float, iter_dtype: torch.dtype
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    out = _iterate_level_plain(tblocks, torig, nblocks, norig, pts_l, d, window, iters, eps,
+                               iter_dtype)
+    # with no iteration the plain version hands back d itself: an operator's output
+    # may not alias its input
+    return (out[0].clone() if out[0] is d else out[0],) + tuple(out[1:])
+
+
+@_klt_iterate_op.register_kernel("cuda")
+def _klt_iterate_cuda(tblocks, torig, nblocks, norig, pts_l, d, window, iters, eps, iter_dtype):
+    """Launch ``csrc/klt_iterate.cu`` once over every track."""
+    N = pts_l.shape[0]
+    dev = pts_l.device
+    d_out = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    det_ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    sat = torch.empty((N,), dtype=torch.bool, device=dev)
+    residual = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N == 0:
+        return d_out, det_ok, sat, residual
+    if window > 31 or max(tblocks.shape[1], nblocks.shape[1]) > 128:
+        raise ValueError(f"klt_iterate kernel takes windows up to 31 and blocks up to 128, "
+                         f"got {window}, {tblocks.shape[1]}, {nblocks.shape[1]}")
+    lib = kernels.library()
+    args = [x.contiguous() for x in (tblocks, torig, nblocks, norig, pts_l, d)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lcvo_klt_iterate(
+            *(x.data_ptr() for x in args), N, window, tblocks.shape[1], nblocks.shape[1],
+            iters, eps * eps, int(tblocks.dtype == torch.bfloat16),
+            int(iter_dtype == torch.bfloat16), d_out.data_ptr(), det_ok.data_ptr(),
+            sat.data_ptr(), residual.data_ptr(), stream)
+    kernels.check(code, "klt_iterate")
+    kernels.LAUNCHES["klt_iterate"] += 1
+    return d_out, det_ok, sat, residual
+
+
+def _klt_iterate_vmap(info, in_dims, tblocks, torig, nblocks, norig, pts_l, d, window, iters,
+                      eps, iter_dtype):
+    """B calls are one call on the B * N tracks; an argument not batched is broadcast."""
+    B = info.batch_size
+
+    def flat(x, dim):
+        x = x.expand((B,) + x.shape) if dim is None else x.movedim(dim, 0)
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    args = [flat(x, dim) for x, dim in zip((tblocks, torig, nblocks, norig, pts_l, d), in_dims)]
+    d, det_ok, sat, residual = torch.ops.lcvo.klt_iterate(*args, window, iters, eps, iter_dtype)
+    return ((d.reshape(B, -1, 2), det_ok.reshape(B, -1), sat.reshape(B, -1),
+             residual.reshape(B, -1)), (0, 0, 0, 0))
+
+
+torch.library.register_vmap("lcvo::klt_iterate", _klt_iterate_vmap)
 
 
 def pyramidal_klt(

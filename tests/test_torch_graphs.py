@@ -239,7 +239,7 @@ def test_launches_count_the_capture_times_the_replays():
         for n in range(1, 6):
             state, _ = step(state, torch.ones(2))
             assert kernels.LAUNCHES == {"extract_blocks": 3 * n, "extract_blocks_layered": n, "svd": 0,
-                                        "p3p": 0}
+                                        "p3p": 0, "klt_iterate": 0}
         stats = step.stats()
         assert len(stats) == 1 and stats[0]["replays"] == 5
         assert stats[0]["launches_per_replay"] == {"extract_blocks": 3, "extract_blocks_layered": 1}

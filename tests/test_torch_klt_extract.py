@@ -98,7 +98,7 @@ def test_cpu_wrapper_runs_plain_version_without_counting(rng, dtype):
     assert torch.equal(b, bp) and torch.equal(o, op)
     assert tklt._extract_blocks(img, c, S)[0].equal(bp)
     assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0,
-                                "p3p": 0}
+                                "p3p": 0, "klt_iterate": 0}
 
 
 def test_nan_and_inf_centers_clamp_like_the_kernel():
@@ -220,7 +220,7 @@ def test_cpu_wrapper_with_pad_runs_plain_version_without_counting(rng, dtype, pa
     bp, op = extract_blocks_plain(img, c, S, pad=pad)
     assert torch.equal(b, bp) and torch.equal(o, op)
     assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0,
-                                "p3p": 0}
+                                "p3p": 0, "klt_iterate": 0}
 
 
 @pytest.mark.parametrize("S,pad,exc", [(5, -1, ValueError), (5, 1.5, ValueError),
@@ -283,7 +283,7 @@ def test_layered_equals_the_per_layer_call(rng, dtype, L, H, W, S, pad_y, pad_x,
     bp, op = extract_blocks_layered_plain(img, c, layer, S, pad_y, pad_x)
     assert torch.equal(b, bp) and torch.equal(o, op)
     assert kernels.LAUNCHES == {"extract_blocks": 0, "extract_blocks_layered": 0, "svd": 0,
-                                "p3p": 0}
+                                "p3p": 0, "klt_iterate": 0}
     assert b.shape == (N, S, S) and b.dtype == dtype and o.dtype == torch.float32
     shift = torch.tensor([float(pad_x), float(pad_y)])
     for n in range(N):
